@@ -1,0 +1,108 @@
+"""Build and bind the port's CUDA C++ kernels.
+
+The sources under csrc/ compile with nvcc into one shared library with a
+plain C interface, loaded with ctypes (no PyTorch headers, so a build
+takes seconds, not minutes). The library is built on first use into
+mp3rgain_tpu_torch/_build/ and rebuilt when a source is newer than it.
+Nothing here runs at import time.
+
+Every C entry point launches on the stream it is given and returns
+cudaGetLastError(); `check` raises on a nonzero code. There is no
+fallback: a failed build or launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+LIB_PATH = os.path.join(BUILD_DIR, "libmp3rgain_torch_kernels.so")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_log = ""  # nvcc/ptxas output of the last build in this process
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH or CUDA_HOME/bin)")
+    return path
+
+
+def _stale() -> bool:
+    if not os.path.exists(LIB_PATH):
+        return True
+    built = os.path.getmtime(LIB_PATH)
+    deps = sources() + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    return any(os.path.getmtime(p) > built for p in deps)
+
+
+def build(force: bool = False) -> float:
+    """Compile csrc/*.cu into LIB_PATH if stale; returns the seconds spent
+    (0.0 when the library was current). Raises on a compiler error."""
+    global build_log
+    if not force and not _stale():
+        return 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.monotonic() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (rc {proc.returncode}):\n{' '.join(cmd)}\n{build_log}"
+        )
+    os.replace(tmp, LIB_PATH)
+    return seconds
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp = ctypes.c_void_p
+    i = ctypes.c_int
+    lib.mg_cuda_entropy_decode.restype = ctypes.c_int
+    lib.mg_cuda_entropy_decode.argtypes = [
+        vp, i, vp, vp, vp, i, i, vp, vp, i, i, vp,
+    ]
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            build()
+            lib = ctypes.CDLL(LIB_PATH)
+            _declare(lib)
+            _lib = lib
+        return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")

@@ -1,0 +1,77 @@
+"""50 ms RMS windows, loudness histogram, and the 95th-percentile readout.
+
+Counterpart of mp3rgain_tpu/ops/histogram.py, with the reference
+analyzer's semantics (the Rust mp3rgain, src/replaygain.rs:624-771):
+
+- windows of sample_rate*50/1000 samples; the trailing partial window is
+  flushed with its own (smaller) sample count;
+- mean_square = (lsum + rsum) / totsamp * 0.5 (mono adds the same square
+  to both sums);
+- bin index = trunc(100 * 10 * log10(ms + 1e-37)) + 2000, truncation
+  toward zero, dropped when outside [0, 12000);
+- loudness = (i - 2000)/100 for the topmost bin where the top-down
+  cumulative count reaches total // 20 + 1 (the reference's
+  ceil(total * (1.0 - 0.95)) for every attainable total).
+
+The histogram is a bincount over flattened (track, bin) offsets; the
+JAX package's (B, windows, 12000) compare-reduce was a workaround for
+TPU scatter lowering.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+HISTOGRAM_SIZE = 12000
+STEPS_PER_DB = 100.0
+HISTOGRAM_OFFSET = 2000
+RMS_PERCENTILE = 0.95
+RMS_WINDOW_MS = 50
+
+
+def window_size(sample_rate: int) -> int:
+    return (sample_rate * RMS_WINDOW_MS) // 1000
+
+
+def histogram(filtered: torch.Tensor, valid_len: torch.Tensor,
+              win: int) -> torch.Tensor:
+    """filtered: (B, C, T) equal-loudness output; valid_len: (B,) valid
+    samples per channel. Returns (B, HISTOGRAM_SIZE) int32 histograms."""
+    b, c, t = filtered.shape
+    n_win = -(-t // win)
+    f = F.pad(filtered, (0, n_win * win - t))
+    sq = (f * f).reshape(b, c, n_win, win)
+
+    idx = torch.arange(n_win * win, device=f.device).reshape(n_win, win)
+    mask = (idx[None] < valid_len.view(b, 1, 1)).to(f.dtype)  # (B, n_win, win)
+
+    # lsum + rsum: mono (C == 1) doubles the same square into both sums.
+    ch_sum = sq.sum(dim=1) * (2.0 if c == 1 else 1.0)  # (B, n_win, win)
+    sums = (ch_sum * mask).sum(dim=-1)  # (B, n_win)
+    totsamp = mask.sum(dim=-1)
+
+    ms = sums / torch.clamp(totsamp, min=1.0) * 0.5
+    val = STEPS_PER_DB * 10.0 * torch.log10(ms + 1e-37)
+    bin_idx = val.to(torch.int32) + HISTOGRAM_OFFSET  # trunc toward zero
+    ok = (totsamp > 0) & (bin_idx >= 0) & (bin_idx < HISTOGRAM_SIZE)
+
+    track = torch.arange(b, device=f.device).view(b, 1).expand_as(bin_idx)
+    flat = (track * HISTOGRAM_SIZE + bin_idx.long())[ok]
+    hist = torch.bincount(flat, minlength=b * HISTOGRAM_SIZE)
+    return hist.view(b, HISTOGRAM_SIZE).to(torch.int32)
+
+
+def loudness_index(hist: torch.Tensor) -> torch.Tensor:
+    """95th-percentile readout, (B, 12000) -> (B,) int32 bin index (-1 for
+    an empty histogram)."""
+    total = hist.sum(dim=1)
+    threshold = total // 20 + 1
+    rev = torch.cumsum(hist.flip(1), dim=1)
+    k = torch.argmax((rev >= threshold[:, None]).to(torch.int32), dim=1)
+    idx = HISTOGRAM_SIZE - 1 - k
+    return torch.where(total > 0, idx, -1).to(torch.int32)
+
+
+def index_to_loudness(idx: int) -> float:
+    return -20.0 if idx < 0 else (int(idx) - HISTOGRAM_OFFSET) / STEPS_PER_DB

@@ -1,0 +1,413 @@
+"""Batched ReplayGain analysis on one device: the raw-bits ("light") path.
+
+Counterpart of the single-device light path of
+mp3rgain_tpu/parallel/runner.py: host light walk → host lane sort and
+pack (prepare_batch_arrays_light, a copy of the JAX package's, held
+bit-identical by the tests) → blocking host-to-device copies → Huffman
+decode (CUDA kernel) → unsort and row-map gathers → requantize + stereo
+(Triton kernel) → hybrid and polyphase GEMMs → equal-loudness IIR →
+RMS-window histogram → 95th-percentile index. Only the per-track index
+and peak come back to the host.
+
+Tracks in one batch share a sample rate and channel count; their
+constant tables live as buffers of one LightTail module.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+from torch import nn
+
+from mp3rgain_tpu.decode import frontend as fe
+from mp3rgain_tpu.decode.format_tables import SR_ROW
+
+from ..decode import entropy_kernel as ek
+from ..decode import hybrid_kernel as hk
+from ..decode.synthesis import _tail_matrices_fused
+from ..device import resolve_device
+from ..ops import histogram as hi
+from ..ops.iir import EqualLoudness
+
+SAMPLE_SCALE_16BIT = 32768.0
+
+_B_LADDER = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256)
+
+
+def _quantize_up(value: int, unit: int, base: int, ratio: float) -> int:
+    """Smallest ladder step >= value (geometric, unit-aligned)."""
+    v = base
+    while v < value:
+        v = int(v * ratio)
+        v = -(-v // unit) * unit
+    return max(v, -(-value // unit) * unit)
+
+
+def prepare_batch_arrays_light(
+    unpacked: list, n_channels: int,
+    pad_batch_to: int = 1,
+    force_shapes: tuple | None = None,
+):
+    """Pack light-unpacked tracks for analysis_core_light.
+
+    Returns (prep: PreparedEntropy,
+    (counts, scf, srow, sdata, hrow, hdata, info, valid_samples),
+    g_max). counts[b] is track b's granule-channel record count (tracks
+    pack back-to-back in input order, so the counts carry the whole
+    (B, G) row map). scf and info are FLAT in the same back-to-back row
+    order — (npad, 12) uint8 nibbles / (npad, 2) uint16 words for
+    npad = nb*LANES. srow/sdata + hrow/hdata are the split-scf sidebands
+    (fe.pack_scf_rows; padding entries point at the dummy row npad).
+    g_max (quantized) sizes the row map. force_shapes = (bpad, g_max,
+    nb, g_pad, s_pad, h_pad) pins all shapes. The big arrays (buf, meta,
+    scf, info) come from the shared buffer pool: hand them back once the
+    device copy has completed."""
+    import ctypes
+
+    from mp3rgain_tpu.native import _lib
+    from mp3rgain_tpu.utils import bufpool
+
+    bsz = len(unpacked)
+    g_max = max(u.n for u in unpacked)
+    unit = 2 * n_channels
+    g_max = _quantize_up(g_max, unit, base=512, ratio=1.3)
+    bpad = next((b for b in _B_LADDER if b >= bsz), bsz)
+    bpad = -(-bpad // pad_batch_to) * pad_batch_to
+    force_nb = force_g = force_s = force_h = None
+    if force_shapes is not None:
+        bpad, g_max, force_nb, force_g, force_s, force_h = force_shapes
+
+    prep = ek.prepare_batch(
+        [u.md for u in unpacked], [u.meta for u in unpacked],
+        quantize_nb=True, force_nb=force_nb, force_g_pad=force_g,
+    )
+    npad = prep.nb * ek.LANES
+
+    counts = np.zeros(bpad, np.int32)
+    counts[:bsz] = [u.n for u in unpacked]
+    info = bufpool.take_zeroed((npad, fe.IP_N), np.uint16)
+    scf = bufpool.take_zeroed((npad, fe.SCF_MAIN_BYTES), np.uint8)
+
+    side_rows: list = []
+    side_data: list = []
+    hi_rows: list = []
+    hi_data: list = []
+    cap = max((u.n for u in unpacked), default=1) or 1
+    srow_t = np.empty(cap, np.int32)
+    sdata_t = np.empty((cap, fe.SCF_SIDE_BYTES), np.uint8)
+    hrow_t = np.empty(cap, np.int32)
+    hmask_t = np.empty((cap, fe.SCF_HI_BYTES), np.uint8)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u16p = ctypes.POINTER(ctypes.c_uint16)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    ns_c = ctypes.c_int64()
+    nh_c = ctypes.c_int64()
+    off = 0
+    for u in unpacked:
+        if not u.n:
+            continue
+        if hasattr(u, "ip"):
+            # Packed walk (fe.unpack_data_light_packed): the rows ARE
+            # the transfer form — plain row copies.
+            info[off : off + u.n] = u.ip
+            scf[off : off + u.n] = u.scf_main
+            if len(u.srows):
+                side_rows.append(u.srows + off)
+                side_data.append(u.sdata)
+            if len(u.hrows):
+                hi_rows.append(u.hrows + off)
+                hi_data.append(u.hmask)
+            off += u.n
+            continue
+        tinfo = np.ascontiguousarray(u.info, dtype=np.int32)
+        tscf = np.ascontiguousarray(u.scf, dtype=np.int32)
+        rc = _lib.mg_pack_light_track(
+            tinfo.ctypes.data_as(i32p), tscf.ctypes.data_as(i32p),
+            ctypes.c_int64(u.n),
+            info[off:].ctypes.data_as(u16p),
+            scf[off:].ctypes.data_as(u8p),
+            srow_t.ctypes.data_as(i32p), sdata_t.ctypes.data_as(u8p),
+            hrow_t.ctypes.data_as(i32p), hmask_t.ctypes.data_as(u8p),
+            ctypes.c_int64(off), ctypes.byref(ns_c), ctypes.byref(nh_c),
+        )
+        if rc != 0:
+            raise ValueError("scalefactor slot exceeds 5 bits")
+        if ns_c.value:
+            side_rows.append(srow_t[: ns_c.value].copy())
+            side_data.append(sdata_t[: ns_c.value].copy())
+        if nh_c.value:
+            hi_rows.append(hrow_t[: nh_c.value].copy())
+            hi_data.append(hmask_t[: nh_c.value].copy())
+        off += u.n
+
+    def _sideband(rows_l, data_l, width, force, base):
+        n = int(sum(len(r) for r in rows_l))
+        pad = _quantize_up(max(n, 1), 8, base=base, ratio=4.0)
+        if force is not None:
+            assert force >= pad or force >= n, (force, n)
+            pad = max(force, pad) if force < pad else force
+        # Padding entries scatter zero rows into the dummy slot npad.
+        rows = np.full(pad, npad, np.int32)
+        data = np.zeros((pad, width), np.uint8)
+        if n:
+            rows[:n] = np.concatenate(rows_l)
+            data[:n] = np.concatenate(data_l)
+        return rows, data
+
+    srow, sdata = _sideband(
+        side_rows, side_data, fe.SCF_SIDE_BYTES, force_s, base=256
+    )
+    hrow, hdata = _sideband(
+        hi_rows, hi_data, fe.SCF_HI_BYTES, force_h, base=64
+    )
+    valid_samples = np.array(
+        [u.n // n_channels * 576 for u in unpacked] + [0] * (bpad - bsz),
+        dtype=np.int32,
+    )
+    return prep, (counts, scf, srow, sdata, hrow, hdata, info,
+                  valid_samples), g_max
+
+
+# ---------------------------------------------------------------------------
+# Device pipeline.
+# ---------------------------------------------------------------------------
+
+
+class LightTail(nn.Module):
+    """The constant tables of the light path for one (sample rate,
+    channel count), as buffers: the Huffman tables (luts), the K2 gather
+    tables and hybrid GEMM cores (hybrid), the polyphase maps (synth_na,
+    synth_nb) and the equal-loudness solve (iir). constants.from_jax_arrays
+    builds the same state from the JAX package's builders."""
+
+    def __init__(self, sample_rate: int, n_channels: int):
+        super().__init__()
+        if n_channels not in (1, 2):
+            raise ValueError(f"n_channels {n_channels}")
+        self.sample_rate = sample_rate
+        self.n_channels = n_channels
+        self.luts = ek.EntropyLuts()
+        self.hybrid = hk.HybridTables(SR_ROW[sample_rate])
+        na, nb = _tail_matrices_fused()
+        self.register_buffer("synth_na", torch.from_numpy(na.astype(np.float32)))
+        self.register_buffer("synth_nb", torch.from_numpy(nb.astype(np.float32)))
+        self.iir = EqualLoudness(sample_rate)
+
+
+def _rowmap_from_counts(counts: torch.Tensor, g_max: int, npad: int):
+    """(B,) per-track granule-channel counts → (B, g_max) int64 row map.
+
+    Track b's records occupy decoded rows [offs_b, offs_b + n_b) in input
+    order; empty padding slots map to npad (the dummy zero row)."""
+    counts = counts.long()
+    offs = torch.cumsum(counts, 0) - counts
+    g_idx = torch.arange(g_max, device=counts.device)
+    return torch.where(
+        g_idx[None, :] < counts[:, None],
+        offs[:, None] + g_idx[None, :],
+        npad,
+    )
+
+
+def _expand_scf_flat(scf, srow, sdata, hrow, hdata):
+    """Expand the flat split scalefactor transfer form (fe.pack_scf_rows)
+    into the (npad + 1, 64) int32 slot tensor: dense (npad, 12) uint8
+    nibbles of slots 0..23, a sparse short-window sideband (srow flat row
+    index, sdata (S, 20) nibbles of slots 24..63) and a sparse high-bit
+    sideband (hrow, hdata (H, 8) bitmasks adding 16 to flagged slots).
+    Row npad is the zero dummy the row map's padding slots gather."""
+    npad = scf.shape[0]
+    dev = scf.device
+    s = scf.to(torch.int32)
+    lo = torch.stack([(s >> 4) & 15, s & 15], dim=-1).reshape(npad, 24)
+    d = sdata.to(torch.int32)
+    hi_nib = torch.stack([(d >> 4) & 15, d & 15], dim=-1).reshape(
+        d.shape[0], fe.SCF_SLOTS - 24
+    )
+    full = torch.zeros((npad + 1, fe.SCF_SLOTS), dtype=torch.int32, device=dev)
+    full[:npad, :24] = lo
+    full[srow.long(), 24:] = hi_nib
+    m = hdata.to(torch.int32)
+    bits = (m[:, :, None] >> torch.arange(8, dtype=torch.int32, device=dev)) & 1
+    full.index_put_((hrow.long(),),
+                    16 * bits.reshape(m.shape[0], fe.SCF_SLOTS),
+                    accumulate=True)
+    return full
+
+
+def channel_major_inputs(spec_b, mout, inv, counts, scf, srow, sdata, hrow,
+                         hdata, info, *, nb: int, g_max: int, n_channels: int):
+    """Sorted decode outputs + flat manifest → K2's channel-major inputs:
+    (spec (C, R, 576) int16, scf (C, R, 64) int8, gmeta (C, R, GM_N)
+    int32) with R = B * T granule-times, track-major. Unsorts the decode,
+    gathers every track's rows through the counts-derived row map (padding
+    slots read a zero dummy row) and unpacks the info words into the
+    gmeta fields."""
+    nch = n_channels
+    dev = spec_b.device
+    spec, big_end, c1end, _ok = ek.unsort_blocks(spec_b, mout, inv, nb=nb)
+    npad = nb * ek.LANES
+    rowmap = _rowmap_from_counts(counts, g_max, npad)
+    scf_full = _expand_scf_flat(scf, srow, sdata, hrow, hdata)
+    info = torch.cat([info.to(torch.int32) & 0xFFFF,
+                      torch.zeros((1, fe.IP_N), dtype=torch.int32, device=dev)])
+    # Row npad is the dummy target for padding slots.
+    spec = torch.cat([spec, torch.zeros((1, 576), dtype=spec.dtype, device=dev)])
+    zs = torch.zeros((1,), dtype=big_end.dtype, device=dev)
+    big_end = torch.cat([big_end, zs])
+    c1end = torch.cat([c1end, zs])
+
+    bsz, g = rowmap.shape
+    t = g // nch
+    r = bsz * t
+    rowmap_cm = rowmap.reshape(bsz, t, nch).permute(2, 0, 1).contiguous()
+    spec_cm = spec[rowmap_cm].reshape(nch, r, 576)  # int16
+    del spec
+    rzero_cm = torch.maximum(big_end[rowmap_cm], c1end[rowmap_cm])
+    wp = info[rowmap_cm]  # (C, B, T, IP_N) packed info words
+    w0 = wp[..., 0]
+    w1 = wp[..., 1]
+    scf_cm = scf_full[rowmap_cm].reshape(nch, r, fe.SCF_SLOTS).to(torch.int8)
+
+    bt = (w0 >> 8) & 3
+    mixed = (w0 >> 10) & 1
+    joint = (w0 >> 14) & 1
+    fields = [torch.zeros_like(bt)] * hk.GM_N
+    fields[hk.GM_GG] = w0 & 255
+    fields[hk.GM_SFS] = (w0 >> 11) & 1
+    fields[hk.GM_PRE] = (w0 >> 12) & 1
+    fields[hk.GM_SBG0] = w1 & 7
+    fields[hk.GM_SBG1] = (w1 >> 3) & 7
+    fields[hk.GM_SBG2] = (w1 >> 6) & 7
+    fields[hk.GM_BT] = bt
+    fields[hk.GM_CLS] = torch.where(bt == 2, 1 + mixed, 0)
+    fields[hk.GM_MS] = joint * ((w1 >> 10) & 1)
+    fields[hk.GM_IS] = joint * ((w1 >> 9) & 1)
+    fields[hk.GM_LSF] = (w0 >> 15) & 1
+    fields[hk.GM_ISC] = (w0 >> 13) & 1
+    fields[hk.GM_RZO] = rzero_cm.flip(0) if nch == 2 else rzero_cm
+    gmeta = torch.stack(fields, dim=-1).to(torch.int32).reshape(nch, r, hk.GM_N)
+    return spec_cm, scf_cm, gmeta
+
+
+def light_tail(tail: LightTail, spec_b, mout, inv, counts, scf, srow, sdata,
+               hrow, hdata, info, valid_samples, *, nb: int, g_max: int):
+    """Sorted decode outputs → (hist (B, 12000) int32, loud_idx (B,) int32,
+    peak (B,) f32): channel-major gathers, requantize + stereo (K2),
+    hybrid GEMMs, overlap-add, polyphase GEMMs, IIR, histogram — the JAX
+    package's _light_tail with fused=True."""
+    nch = tail.n_channels
+    dev = spec_b.device
+    bsz = counts.shape[0]
+    t = g_max // nch
+    spec_cm, scf_cm, gmeta = channel_major_inputs(
+        spec_b, mout, inv, counts, scf, srow, sdata, hrow, hdata, info,
+        nb=nb, g_max=g_max, n_channels=nch)
+    xr = hk.fused_requant_stereo(spec_cm, scf_cm, gmeta, tail.hybrid)
+    del spec_cm, scf_cm
+    z = hk.hybrid_gemm(xr, gmeta, tail.hybrid).reshape(nch, bsz, t, 1152)
+    del xr
+
+    head = z[..., :576]
+    tl_ = z[..., 576:]
+    prev_tail = torch.cat([torch.zeros_like(tl_[:, :, :1]), tl_[:, :, :-1]], dim=2)
+    out18 = head + prev_tail  # (C, B, T, 576)
+    del z, prev_tail
+    prev18 = torch.cat([torch.zeros_like(out18[:, :, :1]), out18[:, :, :-1]], dim=2)
+    pcm = torch.matmul(out18, tail.synth_na)
+    pcm += torch.matmul(prev18, tail.synth_nb)
+    del out18, prev18
+
+    n = t * 576
+    pcm = pcm.reshape(nch, bsz, n)
+    sample_idx = torch.arange(n, device=dev)
+    peak_mask = sample_idx[None, None, :] < valid_samples[None, :, None]
+    peak = (pcm.abs() * peak_mask).amax(dim=(0, 2))  # (B,)
+
+    x = pcm.reshape(nch * bsz, n) * SAMPLE_SCALE_16BIT
+    del pcm
+    filtered = tail.iir(x).reshape(nch, bsz, n).transpose(0, 1)  # (B, C, N)
+    hist = hi.histogram(filtered, valid_samples,
+                        hi.window_size(tail.sample_rate))
+    return hist, hi.loudness_index(hist), peak
+
+
+def analysis_core_light(tail: LightTail, scalars, buf, metab, inv, counts,
+                        scf, srow, sdata, hrow, hdata, info, valid_samples,
+                        *, nb: int, g_max: int):
+    """Raw-bits batched pipeline: Huffman decode (K1) + light_tail."""
+    spec_b, mout = ek.decode_blocks(scalars, buf, metab, tail.luts)
+    return light_tail(
+        tail, spec_b, mout, inv, counts, scf, srow, sdata, hrow, hdata,
+        info, valid_samples, nb=nb, g_max=g_max,
+    )
+
+
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Blocking copy of a host array to `device`; never aliases `arr`
+    (pooled host buffers are reused as soon as this returns)."""
+    if arr.dtype == np.uint16:
+        arr = arr.view(np.int16)  # same bits; widened with & 0xFFFF on device
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cpu":
+        return t.clone()
+    return t.to(device)
+
+
+class Runner:
+    """Batched light-path analysis on one device."""
+
+    def __init__(self, device):
+        self.device = resolve_device(device)
+        self._tails: dict[tuple, LightTail] = {}
+        # prep_s / h2d_s / device_s of the last collected batch (host
+        # clock; device_s runs from the last copy to the result readback).
+        self.last_timings: dict | None = None
+
+    def tail(self, sample_rate: int, n_channels: int) -> LightTail:
+        key = (sample_rate, n_channels)
+        if key not in self._tails:
+            self._tails[key] = LightTail(sample_rate, n_channels).to(self.device)
+        return self._tails[key]
+
+    def dispatch_light(self, unpacked: list, sample_rate: int,
+                       n_channels: int):
+        """Prepare, copy and enqueue a batch of same-format tracks;
+        returns a handle for collect()."""
+        from mp3rgain_tpu.utils import bufpool
+
+        tail = self.tail(sample_rate, n_channels)
+        t0 = time.perf_counter()
+        prep, rest, g_max = prepare_batch_arrays_light(unpacked, n_channels, 1)
+        t1 = time.perf_counter()
+        host = (prep.scalars, prep.buf, prep.meta, prep.inv) + tuple(rest)
+        dev = [_to_device(a, self.device) for a in host]
+        # The copies above are blocking: the pooled buffers are free again.
+        bufpool.give(prep.buf, prep.meta, rest[1], rest[6])
+        t2 = time.perf_counter()
+        hist, loud_idx, peak = analysis_core_light(
+            tail, *dev, nb=prep.nb, g_max=g_max)
+        marks = {"prep_s": t1 - t0, "h2d_s": t2 - t1, "launched": t2}
+        return hist, loud_idx, peak, len(unpacked), marks
+
+    def collect(self, handle):
+        """Wait for a dispatched batch; returns (hist (B, 12000) int32 on
+        the device, loudness (B,) np, peak (B,) np)."""
+        hist, loud_idx, peak, bsz, marks = handle
+        stats = torch.cat([loud_idx[:bsz].to(torch.float32),
+                           peak[:bsz].to(torch.float32)]).cpu().numpy()
+        self.last_timings = {
+            "prep_s": marks["prep_s"], "h2d_s": marks["h2d_s"],
+            "device_s": time.perf_counter() - marks["launched"],
+        }
+        louds = np.array([hi.index_to_loudness(i) for i in stats[:bsz]])
+        return hist[:bsz], louds, stats[bsz:]
+
+    def analyze_unpacked_light(self, unpacked: list, sample_rate: int,
+                               n_channels: int):
+        """Analyze same-format light-unpacked tracks (one batch)."""
+        return self.collect(
+            self.dispatch_light(unpacked, sample_rate, n_channels)
+        )

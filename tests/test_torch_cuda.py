@@ -1,0 +1,128 @@
+"""Torch port on a CUDA card: each hand-written kernel against its plain
+version, and the light path on the card against the CPU.
+
+Every test carries the `cuda` marker and skips where
+torch.cuda.is_available() is false. The file needs neither jax nor an MP3
+encoder, so it runs on a GPU machine that has neither: its inputs are
+crafted streams (mp3rgain_tpu.testing.craft) and the committed clips of
+mp3rgain_tpu_torch/testing/data. Run there with
+`python -m pytest tests/test_torch_cuda.py -q -m cuda`.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from mp3rgain_tpu.decode import frontend as fe
+from mp3rgain_tpu.testing import craft
+from mp3rgain_tpu_torch import _build
+from mp3rgain_tpu_torch.decode import entropy_kernel as ek
+from mp3rgain_tpu_torch.decode import hybrid_kernel as hk
+from mp3rgain_tpu_torch.parallel import runner as pr
+from mp3rgain_tpu_torch.testing import make_smoke_data as smoke
+
+pytestmark = pytest.mark.cuda
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+def _clip(name: str) -> bytes:
+    with open(os.path.join(smoke.DATA_DIR, name), "rb") as f:
+        return f.read()
+
+
+STREAMS = {
+    "mono_22k": lambda: _clip(smoke.MONO_TRACK),
+    "transient": lambda: _clip(smoke.TRANSIENT_TRACK),
+    "truncated": lambda: _clip(smoke.TRANSIENT_TRACK)[:20000],
+    "craft_intensity": craft.craft_intensity_stream,
+    "craft_mixed_block": craft.craft_mixed_block_stream,
+    "craft_count1b": craft.craft_count1b_stream,
+    "craft_lsf_intensity": craft.craft_lsf_intensity_stream,
+}
+
+
+def _on(dev, arrays):
+    return [pr._to_device(a, dev) for a in arrays]
+
+
+@pytest.mark.parametrize("name", sorted(STREAMS))
+def test_k1_kernel_matches_plain_and_host(name, dev):
+    data = STREAMS[name]()
+    light = fe.unpack_data_light(data)
+    p = ek.prepare_batch(light.md, light.meta)
+    scalars, buf, meta, inv = _on(dev, (p.scalars, p.buf, p.meta, p.inv))
+    luts = ek.EntropyLuts().to(dev)
+    k0, p0 = ek.COUNT.kernel, ek.COUNT.plain
+    spec_b, mout = ek.decode_blocks(scalars, buf, meta, luts)
+    torch.cuda.synchronize()
+    assert (ek.COUNT.kernel, ek.COUNT.plain) == (k0 + 1, p0)
+    ref_s, ref_m = ek.decode_blocks_reference(scalars, buf, meta, luts)
+    assert torch.equal(spec_b, ref_s) and torch.equal(mout, ref_m)
+    spec, big_end, c1end, _ = ek.unsort_blocks(spec_b, mout, inv, nb=p.nb)
+    full = fe.unpack_data(data)
+    valid = full.info[:, fe.VALID] == 1
+    got = spec[: p.n].cpu().numpy().astype(np.int32)
+    assert not ((got != full.spectrum).any(axis=1) & valid).any()
+    assert np.array_equal(big_end[: p.n].cpu().numpy()[valid],
+                          full.info[valid, fe.BIG_END])
+    assert np.array_equal(c1end[: p.n].cpu().numpy()[valid],
+                          full.info[valid, fe.COUNT1_END])
+
+
+@pytest.mark.parametrize("name", ["mono_22k", "transient", "craft_intensity",
+                                  "craft_lsf_intensity"])
+def test_k2_kernel_matches_plain(name, dev):
+    u = fe.unpack_data_light_packed(STREAMS[name]())
+    prep, rest, g_max = pr.prepare_batch_arrays_light([u], u.n_channels)
+    args = _on(dev, (prep.scalars, prep.buf, prep.meta, prep.inv) + tuple(rest))
+    tail = pr.LightTail(u.sample_rate, u.n_channels).to(dev)
+    spec_b, mout = ek.decode_blocks(*args[:3], tail.luts)
+    cm = pr.channel_major_inputs(spec_b, mout, *args[3:11], nb=prep.nb,
+                                 g_max=g_max, n_channels=u.n_channels)
+    k0 = hk.COUNT.kernel
+    got = hk.fused_requant_stereo(*cm, tail.hybrid)
+    torch.cuda.synchronize()
+    assert hk.COUNT.kernel == k0 + 1
+    want = hk.fused_requant_stereo_reference(*cm, tail.hybrid)
+    scale = want.abs().max().item()
+    assert scale > 0
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * scale)
+
+
+def test_light_path_on_card_matches_cpu(dev):
+    u = fe.unpack_data_light_packed(_clip(smoke.TRANSIENT_TRACK))
+    ek.COUNT.reset()
+    hk.COUNT.reset()
+    hist, louds, peaks = pr.Runner(dev).analyze_unpacked_light(
+        [u, u], u.sample_rate, u.n_channels)
+    assert (ek.COUNT.kernel, hk.COUNT.kernel) == (1, 1)
+    assert (ek.COUNT.plain, hk.COUNT.plain) == (0, 0)
+    c_hist, c_louds, c_peaks = pr.Runner("cpu").analyze_unpacked_light(
+        [u], u.sample_rate, u.n_channels)
+    assert torch.equal(hist.sum(dim=1).cpu(), c_hist.sum(dim=1).repeat(2))
+    assert np.all(np.abs(louds - c_louds[0]) <= 0.02 + 1e-9)
+    np.testing.assert_allclose(peaks, c_peaks[0], rtol=2e-4, atol=1e-6)
+
+
+def test_failed_kernel_library_raises(dev, monkeypatch):
+    def broken():
+        raise RuntimeError("build failed")
+
+    monkeypatch.setattr(_build, "library", broken)
+    p = ek.prepare_batch(*(lambda lt: (lt.md, lt.meta))(
+        fe.unpack_data_light(craft.craft_count1b_stream())))
+    before = ek.COUNT.plain
+    with pytest.raises(RuntimeError, match="build failed"):
+        ek.decode_blocks(*_on(dev, (p.scalars, p.buf, p.meta)),
+                         ek.EntropyLuts().to(dev))
+    assert ek.COUNT.plain == before
