@@ -3,17 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds both hand-written kernels from the sources in this checkout (the
-CUDA Huffman decode with nvcc, the Triton requantize + stereo pass), holds
-each against its plain PyTorch version on the card, then runs the port's
-main path — Runner.analyze_unpacked_light over 64 copies of a 60 s,
-44.1 kHz joint-stereo 192 kbps track, the JAX package's bench batch — and
-the analysis entry points on three committed clips. Every check raises on
-failure; there is no CPU branch. Output, one phase per line:
+Builds the three hand-written kernels from the sources in this checkout
+(the CUDA Huffman decode K1 and the CUDA split-bf16 class-core GEMM K3
+with nvcc, one process per source, and the Triton requantize + stereo
+pass K2), holds each against its plain PyTorch version on the card, then
+runs the port's two routes over 64 copies of a 60 s, 44.1 kHz
+joint-stereo 192 kbps track, the JAX package's bench batch: the light
+main path (Runner.analyze_unpacked_light, K1 + K2) and the host-decoded
+route (Runner.analyze_unpacked, K3), each with the launch counts set to 0
+just before it and read just after; then the unfused light tail against
+the host-decoded route (exact), decode_file and the analysis entry points
+on committed clips. Every check raises on failure; there is no CPU
+branch. Output, one phase per line:
 
-  device / nvidia-smi name and power limit / build seconds /
-  K1 and K2 agreement and times / slice launch counts, CPU agreement and
-  times / entry-point gains / a JSON line of per-kernel results /
+  device / nvidia-smi name and power limit / build seconds and K1/K3
+  registers and spills / K1, K2 and K3 agreement and times / light slice
+  launch counts, CPU agreement / heavy slice launch counts, CPU and light
+  agreement, light unfused == heavy / decode_file / entry-point gains /
+  times / a JSON line of per-kernel results /
   last line {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Imports nothing of JAX. Exits non-zero without a result line when no
@@ -24,12 +31,16 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import time
 
 K2_RTOL = 1e-5
 K2_ATOL_REL = 1e-6  # atol = K2_ATOL_REL * max|plain|
+# K3: bf16 products are exact in f32 on both sides; only the summation
+# order differs.
+K3_RTOL = 1e-5
+K3_ATOL_REL = 1e-5  # atol = K3_ATOL_REL * max|plain|
 BATCH_TRACKS = 64
+PROBE_ROWS = 294_912  # the TPU probe's R, per channel
 
 
 def check(cond: bool, what: str) -> None:
@@ -37,36 +48,16 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device milliseconds per call over `iters` calls after one
-    warm-up call, timed with CUDA events."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def main() -> None:
     import numpy as np
     import torch
 
-    from mp3rgain_tpu_torch.device import require_cuda
+    from mp3rgain_tpu_torch.device import card_label, cuda_ms, require_cuda
 
     # --- 1. device -----------------------------------------------------------
     dev = require_cuda()
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_label()
     card = f"[{smi}]"
     print(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"nvidia-smi: {smi}", flush=True)
@@ -74,17 +65,29 @@ def main() -> None:
     from mp3rgain_tpu.decode import frontend as fe
     from mp3rgain_tpu.testing import craft
     from mp3rgain_tpu_torch import _build, analysis
+    from mp3rgain_tpu_torch.decode import class_core as cc
     from mp3rgain_tpu_torch.decode import entropy_kernel as ek
     from mp3rgain_tpu_torch.decode import hybrid_kernel as hk
+    from mp3rgain_tpu_torch.decode import synthesis as syn
     from mp3rgain_tpu_torch.parallel import runner as pr
     from mp3rgain_tpu_torch.testing import make_smoke_data as smoke
+    from mp3rgain_tpu_torch.tools import hk_dotprobe
 
     torch.set_num_threads(min(8, os.cpu_count() or 1))
 
     # --- 2. build ------------------------------------------------------------
     nvcc_s = _build.build(force=True)
     _build.library()
-    regs = [ln.strip() for ln in _build.build_log.splitlines() if "registers" in ln]
+    resources = {}  # kernel -> its ptxas register and spill lines
+    entry = None
+    for ln in _build.build_log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = "K1" if "entropy_decode" in ln else "K3" if "class_core" in ln else ln
+        elif entry and ("registers" in ln or "spill" in ln):
+            resources.setdefault(entry, []).append(
+                " ".join(ln.replace("ptxas info    :", "").split()))
+    check(set(resources) == {"K1", "K3"}, f"ptxas reported K1 and K3: {sorted(resources)}")
+    regs = [f"{k}: {', '.join(v)}" for k, v in sorted(resources.items())]
     t0 = time.perf_counter()
     tables0 = hk.HybridTables(0).to(dev)
     z16 = torch.zeros((2, 1, 576), dtype=torch.int16, device=dev)
@@ -93,7 +96,7 @@ def main() -> None:
                             tables0)
     torch.cuda.synchronize()
     triton_s = time.perf_counter() - t0
-    print(f"build: K1 nvcc {nvcc_s:.2f} s ({'; '.join(regs)}); "
+    print(f"build: K1 + K3 nvcc {nvcc_s:.2f} s ({'; '.join(regs)}); "
           f"K2 triton jit {triton_s:.2f} s", flush=True)
 
     # --- 3. inputs -----------------------------------------------------------
@@ -211,18 +214,65 @@ def main() -> None:
     del cm, batch
     torch.cuda.empty_cache()
 
-    # --- 6. the main path at full size ----------------------------------------
+    # --- 6. K3: CUDA kernel against the plain version -------------------------
+    def k3_compare(x, chi, clo, row_core):
+        got = cc.class_core_gemm(x, chi, clo, row_core=row_core)
+        want = cc.class_core_gemm_reference(x, chi, clo, row_core=row_core)
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        check(bool(torch.isfinite(got).all()) and scale > 0, "K3 output finite")
+        check(torch.allclose(got, want, rtol=K3_RTOL, atol=K3_ATOL_REL * scale),
+              f"K3 within rtol {K3_RTOL}, atol {K3_ATOL_REL}*max|plain| "
+              f"(max_abs_err {err:.3e} of {scale:.3e})")
+        del got, want
+        k_ms = cuda_ms(lambda: cc.class_core_gemm(x, chi, clo, row_core=row_core), 5)
+        p_ms = cuda_ms(lambda: cc.class_core_gemm_reference(
+            x, chi, clo, row_core=row_core), 2)
+        return err, scale, k_ms, p_ms
+
+    # (a) the TPU probe's shape and inputs: 2 channels, 3 cores summed, 3 passes.
+    x, chi, clo = (t.to(dev) for t in hk_dotprobe.make_inputs(PROBE_ROWS, 3))
+    k3p_err, k3p_scale, k3p_ms, k3p_plain_ms = k3_compare(x, chi, clo, None)
+    fl = hk_dotprobe.flops(PROBE_ROWS, 3, 3)
+    print(f"K3 class_core_gemm (CUDA C++), probe shape R={PROBE_ROWS} x 2 channels, "
+          f"NCORE 3, NPASS 3: max_abs_err {k3p_err:.3e} of max|plain| "
+          f"{k3p_scale:.3e}; kernel {k3p_ms:.3f} ms ({fl / k3p_ms / 1e9:.1f} TFLOP/s), "
+          f"plain {k3p_plain_ms:.3f} ms ({fl / k3p_plain_ms / 1e9:.1f} TFLOP/s) {card}",
+          flush=True)
+    # (b) the host-decoded route's shape: the batch's 64 x g_max records as
+    # one channel, the real decode cores, each record's layout class.
+    cls = syn._classes(syn.batch_from_unpacked(full, dev).kind, tail.decode)
+    cls = np.pad(cls[0].cpu().numpy(), (0, g_max - full.n))
+    row_core = torch.from_numpy(np.tile(cls, BATCH_TRACKS)[None].astype(np.int32)).to(dev)
+    x = x.view(1, -1, 576)
+    check(x.shape[1] == row_core.shape[1], "heavy shape: 64 x g_max records")
+    k3_err, k3_scale, k3_ms, k3_plain_ms = k3_compare(
+        x, tail.decode.chi, tail.decode.clo, row_core)
+    heavy_rows = x.shape[1]
+    fl_h = 2 * 3 * heavy_rows * 576 * 1152
+    shares = np.bincount(cls, minlength=3) / len(cls)
+    print(f"K3 class_core_gemm (CUDA C++), heavy shape R={heavy_rows} x 1 channel, "
+          f"row_core classes long/short/mixed {shares.round(4).tolist()}: max_abs_err "
+          f"{k3_err:.3e} of max|plain| {k3_scale:.3e}; kernel {k3_ms:.3f} ms "
+          f"({fl_h / k3_ms / 1e9:.1f} TFLOP/s useful), plain {k3_plain_ms:.3f} ms {card}",
+          flush=True)
+    del x, chi, clo, row_core
+    torch.cuda.empty_cache()
+
+    # --- 7. the light main path at full size -----------------------------------
     runner = pr.Runner(dev)
     runner.analyze_unpacked_light([u] * BATCH_TRACKS, 44100, 2)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ek.COUNT.reset()
     hk.COUNT.reset()
+    cc.COUNT.reset()
     t0 = time.perf_counter()
     hist, louds, peaks = runner.analyze_unpacked_light([u] * BATCH_TRACKS, 44100, 2)
     wall_s = time.perf_counter() - t0
     counts = {"entropy_decode": ek.COUNT.kernel, "requant_stereo": hk.COUNT.kernel}
-    plain_calls = ek.COUNT.plain + hk.COUNT.plain
+    plain_calls = ek.COUNT.plain + hk.COUNT.plain + cc.COUNT.plain
     timing = runner.last_timings
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(all(v > 0 for v in counts.values()), f"both kernels launched: {counts}")
@@ -245,6 +295,73 @@ def main() -> None:
           f"{int(win_counts[0])} vs CPU gain {64.82 - cpu_louds[0]:.2f} dB, "
           f"peak {cpu_peaks[0]:.6f}, windows {int(cpu_hist.sum())}", flush=True)
 
+    # --- 8. the host-decoded route at full size ---------------------------------
+    runner.analyze_unpacked([full] * BATCH_TRACKS, 44100, 2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ek.COUNT.reset()
+    hk.COUNT.reset()
+    cc.COUNT.reset()
+    t0 = time.perf_counter()
+    handle = runner.dispatch_heavy([full] * BATCH_TRACKS, 44100, 2)
+    h_hist, h_louds, h_peaks = runner.collect(handle)
+    h_wall_s = time.perf_counter() - t0
+    h_counts = {"class_core_gemm": cc.COUNT.kernel}
+    h_plain = ek.COUNT.plain + hk.COUNT.plain + cc.COUNT.plain
+    h_timing = runner.last_timings
+    h_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(h_counts["class_core_gemm"] > 0, f"K3 launched on the heavy route: {h_counts}")
+    check(h_plain == 0, f"no plain-version calls on CUDA ({h_plain})")
+    check(h_hist.shape == (BATCH_TRACKS, 12000), "heavy histogram shape")
+    check(bool(np.isfinite(h_louds).all() and np.isfinite(h_peaks).all()),
+          "finite heavy loudness and peak")
+    h_win = h_hist.sum(dim=1).cpu().numpy()
+    c_hist, c_louds, c_peaks = pr.Runner("cpu").analyze_unpacked([full], 44100, 2)
+    h_idx = np.array([round(v * 100) + 2000 for v in h_louds])
+    c_idx = round(c_louds[0] * 100) + 2000
+    l_idx = np.array([round(v * 100) + 2000 for v in louds])
+    check(int(h_win[0]) == int(c_hist.sum()), "heavy window counts equal CPU")
+    check(abs(int(h_idx[0]) - c_idx) <= 2, f"heavy index within 2 bins of CPU "
+          f"({h_idx[0]} vs {c_idx})")
+    check(bool(np.allclose(h_peaks[0], c_peaks[0], rtol=2e-4, atol=1e-6)),
+          f"heavy peak within rtol 2e-4 of CPU ({h_peaks[0]} vs {c_peaks[0]})")
+    check(bool((h_win == win_counts).all()), "heavy window counts equal light's")
+    check(bool((np.abs(h_idx - l_idx) <= 2).all()), "heavy index within 2 bins of light")
+    check(bool(np.allclose(h_peaks, peaks, rtol=2e-4, atol=1e-6)),
+          "heavy peak within rtol 2e-4 of light")
+    print(f"heavy slice: Runner.analyze_unpacked {BATCH_TRACKS} x {track_s:.2f} s on "
+          f"{dev}: launches {h_counts}, plain calls {h_plain}; track 0 index "
+          f"{h_idx[0]}, peak {h_peaks[0]:.6f}, windows {int(h_win[0])} vs CPU index "
+          f"{c_idx}, peak {c_peaks[0]:.6f}, windows {int(c_hist.sum())}; vs light: "
+          f"max index diff {int(np.abs(h_idx - l_idx).max())}, max peak rel diff "
+          f"{float(np.abs(h_peaks / peaks - 1).max()):.2e}", flush=True)
+
+    # The unfused light tail feeds the same analysis_tail: exactly equal.
+    prep, rest, g_lt = pr.prepare_batch_arrays_light([u] * BATCH_TRACKS, 2)
+    batch = to_dev((prep.scalars, prep.buf, prep.meta, prep.inv) + tuple(rest))
+    lt = pr.analysis_core_light(runner.tail(44100, 2), *batch, nb=prep.nb,
+                                g_max=g_lt, fused=False)
+    del batch
+    for a, b, what in zip(lt, handle[:3], ("hist", "loud_idx", "peak")):
+        check(a.shape == b.shape and torch.equal(a, b),
+              f"light_tail(fused=False) {what} equals the heavy route exactly")
+    print(f"light unfused == heavy on {dev}: hist, loud_idx and peak exactly equal "
+          f"over {BATCH_TRACKS} tracks (batch of {lt[0].shape[0]})", flush=True)
+    del lt, handle
+    torch.cuda.empty_cache()
+
+    dec = []
+    for fname in (smoke.MONO_TRACK, smoke.TRANSIENT_TRACK):
+        path = os.path.join(smoke.DATA_DIR, fname)
+        got, sr_g = syn.decode_file(path, device=dev)
+        want, sr_w = syn.decode_file(path, device="cpu")
+        bound = 5e-4 * float(np.sqrt((want ** 2).mean())) + 1e-5
+        err = float(np.abs(got - want).max())
+        check(sr_g == sr_w and got.shape == want.shape and err < bound,
+              f"decode_file {fname} on the card vs CPU ({err:.3e} >= {bound:.3e})")
+        dec.append(f"{fname} {got.shape} max|err| {err:.2e} (bound {bound:.2e})")
+    print(f"decode_file (cuda vs cpu): {'; '.join(dec)}", flush=True)
+
     gains = []
     for path in clips:
         r = analysis.analyze_track_internal(path, device=dev).result
@@ -259,8 +376,9 @@ def main() -> None:
           f"{album.album_gain_db:.2f} dB, album peak {album.album_peak:.4f}",
           flush=True)
 
-    # --- 7. times ---------------------------------------------------------------
+    # --- 9. times ---------------------------------------------------------------
     split = timing["prep_s"] + timing["h2d_s"] + timing["device_s"]
+    h_split = h_timing["prep_s"] + h_timing["h2d_s"] + h_timing["device_s"]
     print(f"times {card}: slice wall {wall_s:.3f} s = host prep "
           f"{timing['prep_s']:.3f} s + h2d {timing['h2d_s']:.3f} s + device "
           f"{timing['device_s']:.3f} s (sum {split:.3f}); {audio_s:.0f} s of audio, "
@@ -268,6 +386,13 @@ def main() -> None:
           f"{audio_s / timing['device_s']:.0f}x; peak device memory "
           f"{peak_gb:.2f} GB; K1 {k1_ms:.3f} ms vs plain {k1_plain_ms:.1f} ms; "
           f"K2 {k2_ms:.3f} ms vs plain {k2_plain_ms:.3f} ms", flush=True)
+    print(f"times {card}: heavy slice wall {h_wall_s:.3f} s = host prep "
+          f"{h_timing['prep_s']:.3f} s + h2d {h_timing['h2d_s']:.3f} s + device "
+          f"{h_timing['device_s']:.3f} s (sum {h_split:.3f}); real-time factor "
+          f"{audio_s / h_wall_s:.0f}x; device-only {audio_s / h_timing['device_s']:.0f}x; "
+          f"peak device memory {h_peak_gb:.2f} GB; K3 heavy shape {k3_ms:.3f} ms vs "
+          f"plain {k3_plain_ms:.3f} ms; K3 probe shape {k3p_ms:.3f} ms vs plain "
+          f"{k3p_plain_ms:.3f} ms", flush=True)
 
     kernels = [
         {"name": "entropy_decode", "route": "cuda",
@@ -280,6 +405,11 @@ def main() -> None:
          "replaces": "mp3rgain_tpu/decode/hybrid_kernel.py:163",
          "launches": counts["requant_stereo"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "class_core_gemm", "route": "cuda",
+         "source": "mp3rgain_tpu_torch/csrc/class_core_gemm.cu",
+         "replaces": "tools/hk_dotprobe.py:22",
+         "launches": h_counts["class_core_gemm"], "max_abs_err": max(k3_err, k3p_err),
+         "ms": k3_ms, "plain_ms": k3_plain_ms},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

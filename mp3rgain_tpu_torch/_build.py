@@ -2,9 +2,11 @@
 
 The sources under csrc/ compile with nvcc into one shared library with a
 plain C interface, loaded with ctypes (no PyTorch headers, so a build
-takes seconds, not minutes). The library is built on first use into
-mp3rgain_tpu_torch/_build/ and rebuilt when a source is newer than it.
-Nothing here runs at import time.
+takes seconds, not minutes). Each source compiles in its own nvcc
+process, all started together, and one more links the objects. The
+library is built on first use into mp3rgain_tpu_torch/_build/ and
+rebuilt when a source is newer than it. Nothing here runs at import
+time.
 
 Every C entry point launches on the stream it is given and returns
 cudaGetLastError(); `check` raises on a nonzero code. There is no
@@ -28,7 +30,7 @@ LIB_PATH = os.path.join(BUILD_DIR, "libmp3rgain_torch_kernels.so")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -67,18 +69,43 @@ def build(force: bool = False) -> float:
     if not force and not _stale():
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    tag = f"{os.getpid()}.tmp"
     t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.monotonic() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc {proc.returncode}):\n{' '.join(cmd)}\n{build_log}"
-        )
+    jobs = []
+    for src in sources():
+        stem = os.path.join(BUILD_DIR, os.path.basename(src)[:-3])
+        obj, log = f"{stem}.{tag}.o", f"{stem}.{tag}.log"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src]
+        with open(log, "w") as out:
+            proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)
+        jobs.append((cmd, proc, obj, log))
+    logs, failed = [], []
+    for cmd, proc, _obj, log in jobs:
+        rc = proc.wait()
+        with open(log) as f:
+            logs.append(f.read())
+        os.remove(log)
+        if rc != 0:
+            failed.append(f"rc {rc}: {' '.join(cmd)}")
+    build_log = "".join(logs)
+    objs = [obj for _cmd, _proc, obj, _log in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed) + "\n" + build_log)
+        tmp = f"{LIB_PATH}.{tag}"
+        cmd = [_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed (rc {proc.returncode}):\n{' '.join(cmd)}\n{build_log}"
+            )
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, LIB_PATH)
-    return seconds
+    return time.monotonic() - t0
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -88,6 +115,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mg_cuda_entropy_decode.argtypes = [
         vp, i, vp, vp, vp, i, i, vp, vp, i, i, vp,
     ]
+    lib.mg_cuda_class_core_gemm.restype = ctypes.c_int
+    lib.mg_cuda_class_core_gemm.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp]
 
 
 def library() -> ctypes.CDLL:

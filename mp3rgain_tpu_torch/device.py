@@ -15,6 +15,7 @@ unmeasured against that budget, so it stays off.
 
 from __future__ import annotations
 
+import subprocess
 from dataclasses import dataclass
 
 import torch
@@ -81,3 +82,28 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device milliseconds per call of `fn` over `iters` calls after
+    one warm-up call, timed with CUDA events on the current stream."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def card_label() -> str:
+    """The card's name and power limit as nvidia-smi reports them
+    (`--query-gpu=name,power.limit --format=csv,noheader`), first card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    return out.strip().splitlines()[0]

@@ -1,14 +1,23 @@
-"""Batched ReplayGain analysis on one device: the raw-bits ("light") path.
+"""Batched ReplayGain analysis on one device, over both MP3 routes.
 
-Counterpart of the single-device light path of
-mp3rgain_tpu/parallel/runner.py: host light walk → host lane sort and
-pack (prepare_batch_arrays_light, a copy of the JAX package's, held
-bit-identical by the tests) → blocking host-to-device copies → Huffman
-decode (CUDA kernel) → unsort and row-map gathers → requantize + stereo
-(Triton kernel) → hybrid and polyphase GEMMs → equal-loudness IIR →
-RMS-window histogram → 95th-percentile index. Only the per-track index
-and peak come back to the host.
+Counterpart of the single-device paths of mp3rgain_tpu/parallel/runner.py.
 
+The raw-bits ("light") route, the main path: host light walk → host lane
+sort and pack (prepare_batch_arrays_light) → blocking host-to-device
+copies → Huffman decode (K1, CUDA) → unsort and row-map gathers →
+requantize + stereo (K2, Triton) → hybrid and polyphase GEMMs →
+equal-loudness IIR → RMS-window histogram → 95th-percentile index.
+
+The host-decoded ("heavy") route: host full decode (frontend.unpack_data)
+→ padded compact manifest (prepare_batch_arrays) → blocking copies →
+spectrum unpack → analysis_tail: the decode back-end of decode.synthesis
+(requantize, stereo, class-core GEMMs in K3, polyphase GEMMs) → the same
+IIR, histogram and index. light_tail(fused=False) feeds the light
+route's decode outputs into that same analysis_tail, so the two routes
+agree exactly.
+
+The host packers are copies of the JAX package's, held bit-identical by
+the tests. Only the per-track index and peak come back to the host.
 Tracks in one batch share a sample rate and channel count; their
 constant tables live as buffers of one LightTail module.
 """
@@ -26,7 +35,7 @@ from mp3rgain_tpu.decode.format_tables import SR_ROW
 
 from ..decode import entropy_kernel as ek
 from ..decode import hybrid_kernel as hk
-from ..decode.synthesis import _tail_matrices_fused
+from ..decode.synthesis import DecodeTables, GranuleBatch, _derive_fields, decode_batch
 from ..device import resolve_device
 from ..ops import histogram as hi
 from ..ops.iir import EqualLoudness
@@ -170,17 +179,73 @@ def prepare_batch_arrays_light(
                   valid_samples), g_max
 
 
+def prepare_batch_arrays(unpacked: list, n_channels: int,
+                         pad_batch_to: int = 1):
+    """Pack host-decoded tracks into padded arrays for analysis_core.
+
+    Uses narrow transfer dtypes: huffman values fit int16 (|x| <= 15 +
+    2^13), scalefactors fit int8. Returns the positional arg tuple of
+    analysis_core (spec_i8, esc_idx, esc_val, scf, info, valid_samples).
+    G pads to the light route's shape ladder, so equal batches give
+    equal shapes on both routes."""
+    bsz = len(unpacked)
+    g_max = max(u.n for u in unpacked)
+    unit = 2 * n_channels
+    g_max = _quantize_up(g_max, unit, base=512, ratio=1.3)
+    bpad = next((b for b in _B_LADDER if b >= bsz), bsz)
+    bpad = -(-bpad // pad_batch_to) * pad_batch_to
+
+    def pad_tracks(get, shape_tail, dtype=np.int32):
+        out = np.zeros((bpad, g_max) + shape_tail, dtype=dtype)
+        for i, u in enumerate(unpacked):
+            a = get(u)
+            out[i, : a.shape[0]] = a
+        return out
+
+    info = pad_tracks(lambda u: u.info, (fe.INFO_N,))
+    spectrum = pad_tracks(lambda u: u.spectrum, (576,), dtype=np.int16)
+    scf = pad_tracks(lambda u: u.scf, (64,), dtype=np.int8)
+    valid_samples = np.array(
+        [u.n // n_channels * 576 for u in unpacked] + [0] * (bpad - bsz),
+        dtype=np.int32,
+    )
+
+    # Compact transfer form: trim to the nonzero spectral extent (rounded
+    # to keep the shape population small), clip to int8, and ship the
+    # rare |v| > 127 escapes as a sparse sideband.
+    rzero = np.maximum(info[:, :, fe.BIG_END], info[:, :, fe.COUNT1_END])
+    ext = min(576, max(96, int(-(-int(rzero.max()) // 96) * 96)))
+    spec_t = spectrum[:, :, :ext]
+    flat = spec_t.reshape(-1, ext)
+    mask = np.abs(flat) > 127
+    counts = mask.sum(axis=1)
+    n_esc = max(4, int(-(-max(int(counts.max()), 1) // 4) * 4))
+    esc_idx = np.full((flat.shape[0], n_esc), 576, dtype=np.int16)
+    esc_val = np.zeros((flat.shape[0], n_esc), dtype=np.int16)
+    rows, cols = np.nonzero(mask)
+    if len(rows):
+        pos = np.arange(len(rows)) - np.repeat(np.cumsum(counts) - counts, counts)
+        esc_idx[rows, pos] = cols
+        esc_val[rows, pos] = flat[rows, cols]
+    spec_i8 = np.clip(spec_t, -127, 127).astype(np.int8)
+    g_max = spectrum.shape[1]
+    esc_idx = esc_idx.reshape(bpad, g_max, n_esc)
+    esc_val = esc_val.reshape(bpad, g_max, n_esc)
+    return (spec_i8, esc_idx, esc_val, scf, info, valid_samples)
+
+
 # ---------------------------------------------------------------------------
 # Device pipeline.
 # ---------------------------------------------------------------------------
 
 
 class LightTail(nn.Module):
-    """The constant tables of the light path for one (sample rate,
-    channel count), as buffers: the Huffman tables (luts), the K2 gather
-    tables and hybrid GEMM cores (hybrid), the polyphase maps (synth_na,
-    synth_nb) and the equal-loudness solve (iir). constants.from_jax_arrays
-    builds the same state from the JAX package's builders."""
+    """The constant tables of both routes for one (sample rate, channel
+    count), as buffers: the Huffman tables (luts), the K2 gather tables
+    and light hybrid GEMM cores (hybrid), the decode back-end's tables,
+    K3 cores and polyphase maps (decode) and the equal-loudness solve
+    (iir). constants.from_jax_arrays builds the same state from the JAX
+    package's builders."""
 
     def __init__(self, sample_rate: int, n_channels: int):
         super().__init__()
@@ -190,9 +255,7 @@ class LightTail(nn.Module):
         self.n_channels = n_channels
         self.luts = ek.EntropyLuts()
         self.hybrid = hk.HybridTables(SR_ROW[sample_rate])
-        na, nb = _tail_matrices_fused()
-        self.register_buffer("synth_na", torch.from_numpy(na.astype(np.float32)))
-        self.register_buffer("synth_nb", torch.from_numpy(nb.astype(np.float32)))
+        self.decode = DecodeTables(SR_ROW[sample_rate])
         self.iir = EqualLoudness(sample_rate)
 
 
@@ -235,6 +298,71 @@ def _expand_scf_flat(scf, srow, sdata, hrow, hdata):
                     16 * bits.reshape(m.shape[0], fe.SCF_SLOTS),
                     accumulate=True)
     return full
+
+
+def _unpack_spectrum(spec_i8, esc_idx, esc_val):
+    """Compact transfer form → (B, G, 576) int32 spectra: the int8 values
+    over the trimmed extent, then the (index, value) escape sideband
+    scattered into a 577-column buffer whose column 576 takes the
+    padding escapes, then dropped."""
+    b, g, ext = spec_i8.shape
+    spec = torch.zeros((b, g, 577), dtype=torch.int32, device=spec_i8.device)
+    spec[..., :ext] = spec_i8
+    spec.scatter_(2, esc_idx.long(), esc_val.to(torch.int32))
+    return spec[..., :576].contiguous()
+
+
+def _expand_info_light(packed):
+    """The light manifest's 2×uint16 info words (fe.pack_info_light) →
+    the (..., INFO_N) int32 info tensor analysis_tail reads."""
+    w0 = packed[..., 0].to(torch.int32)
+    w1 = packed[..., 1].to(torch.int32)
+    zero = torch.zeros_like(w0)
+    cols = [zero] * fe.INFO_N
+    cols[fe.GLOBAL_GAIN] = w0 & 255
+    cols[fe.BLOCK_TYPE] = (w0 >> 8) & 3
+    cols[fe.MIXED] = (w0 >> 10) & 1
+    cols[fe.SCALEFAC_SCALE] = (w0 >> 11) & 1
+    cols[fe.PREFLAG] = (w0 >> 12) & 1
+    cols[fe.INTENSITY_SCALE] = (w0 >> 13) & 1
+    cols[fe.CHANNEL_MODE] = (w0 >> 14) & 1  # joint flag; 1 == joint
+    cols[fe.VERSION] = 1 + ((w0 >> 15) & 1)  # lsf bit -> version 2, else 1
+    cols[fe.SBG0] = w1 & 7
+    cols[fe.SBG1] = (w1 >> 3) & 7
+    cols[fe.SBG2] = (w1 >> 6) & 7
+    cols[fe.MODE_EXT] = (w1 >> 9) & 3
+    cols[fe.SR_ROW] = (w1 >> 11) & 15
+    return torch.stack(cols, dim=-1)
+
+
+def analysis_tail(tail: LightTail, spectrum, scf, info, valid_samples):
+    """Full (B, G, 576) spectra, (B, G, 64) scalefactors and (B, G,
+    INFO_N) info → (hist (B, 12000) int32, loud_idx (B,) int32, peak (B,)
+    f32): decode_batch, then the IIR, histogram and index. The JAX
+    package's _analysis_tail, with its vmap over tracks as the batch
+    dimension."""
+    nch = tail.n_channels
+    fields = _derive_fields(spectrum, scf, info.to(torch.int32), n_channels=nch)
+    pcm = decode_batch(GranuleBatch(*fields, n_channels=nch), tail.decode)
+    del fields
+    bsz, c, n = pcm.shape
+    sample_idx = torch.arange(n, device=pcm.device)
+    peak_mask = sample_idx[None, None, :] < valid_samples[:, None, None]
+    peak = (pcm.abs() * peak_mask).amax(dim=(1, 2))  # (B,)
+    x = pcm.reshape(bsz * c, n) * SAMPLE_SCALE_16BIT
+    del pcm
+    filtered = tail.iir(x).reshape(bsz, c, n)
+    hist = hi.histogram(filtered, valid_samples,
+                        hi.window_size(tail.sample_rate))
+    return hist, hi.loudness_index(hist), peak
+
+
+def analysis_core(tail: LightTail, spec_i8, esc_idx, esc_val, scf, info,
+                  valid_samples):
+    """Host-decoded batched pipeline: prepare_batch_arrays' compact
+    manifest → spectrum unpack → analysis_tail."""
+    spectrum = _unpack_spectrum(spec_i8, esc_idx, esc_val)
+    return analysis_tail(tail, spectrum, scf, info, valid_samples)
 
 
 def channel_major_inputs(spec_b, mout, inv, counts, scf, srow, sdata, hrow,
@@ -292,12 +420,43 @@ def channel_major_inputs(spec_b, mout, inv, counts, scf, srow, sdata, hrow,
     return spec_cm, scf_cm, gmeta
 
 
+def _light_tail_unfused(tail: LightTail, spec_b, mout, inv, counts, scf,
+                        srow, sdata, hrow, hdata, info, valid_samples, *,
+                        nb: int, g_max: int):
+    """Row gathers of the decode outputs into the host-decoded route's
+    (B, G, ...) form, BIG_END/COUNT1_END taken from K1's outputs, then
+    analysis_tail."""
+    spec, big_end, c1end, _ok = ek.unsort_blocks(spec_b, mout, inv, nb=nb)
+    npad = nb * ek.LANES
+    dev = spec.device
+    rowmap = _rowmap_from_counts(counts, g_max, npad)
+    scf = _expand_scf_flat(scf, srow, sdata, hrow, hdata)[rowmap]
+    info = torch.cat([info.to(torch.int32) & 0xFFFF,
+                      torch.zeros((1, fe.IP_N), dtype=torch.int32, device=dev)])
+    info = _expand_info_light(info[rowmap])
+    # Row npad is the dummy target for padding slots.
+    spectrum = torch.cat([spec, torch.zeros((1, 576), dtype=spec.dtype, device=dev)])
+    spectrum = spectrum[rowmap]
+    del spec
+    zs = torch.zeros((1,), dtype=big_end.dtype, device=dev)
+    info[..., fe.BIG_END] = torch.cat([big_end, zs])[rowmap]
+    info[..., fe.COUNT1_END] = torch.cat([c1end, zs])[rowmap]
+    return analysis_tail(tail, spectrum, scf, info, valid_samples)
+
+
 def light_tail(tail: LightTail, spec_b, mout, inv, counts, scf, srow, sdata,
-               hrow, hdata, info, valid_samples, *, nb: int, g_max: int):
+               hrow, hdata, info, valid_samples, *, nb: int, g_max: int,
+               fused: bool = True):
     """Sorted decode outputs → (hist (B, 12000) int32, loud_idx (B,) int32,
-    peak (B,) f32): channel-major gathers, requantize + stereo (K2),
-    hybrid GEMMs, overlap-add, polyphase GEMMs, IIR, histogram — the JAX
-    package's _light_tail with fused=True."""
+    peak (B,) f32) — the JAX package's _light_tail. fused=True (the main
+    path): channel-major gathers, requantize + stereo (K2), hybrid GEMMs,
+    overlap-add, polyphase GEMMs, IIR, histogram. fused=False: the
+    host-decoded route's analysis_tail on the same decode outputs, which
+    equals that route exactly."""
+    if not fused:
+        return _light_tail_unfused(
+            tail, spec_b, mout, inv, counts, scf, srow, sdata, hrow, hdata,
+            info, valid_samples, nb=nb, g_max=g_max)
     nch = tail.n_channels
     dev = spec_b.device
     bsz = counts.shape[0]
@@ -316,8 +475,8 @@ def light_tail(tail: LightTail, spec_b, mout, inv, counts, scf, srow, sdata,
     out18 = head + prev_tail  # (C, B, T, 576)
     del z, prev_tail
     prev18 = torch.cat([torch.zeros_like(out18[:, :, :1]), out18[:, :, :-1]], dim=2)
-    pcm = torch.matmul(out18, tail.synth_na)
-    pcm += torch.matmul(prev18, tail.synth_nb)
+    pcm = torch.matmul(out18, tail.decode.synth_na)
+    pcm += torch.matmul(prev18, tail.decode.synth_nb)
     del out18, prev18
 
     n = t * 576
@@ -336,12 +495,12 @@ def light_tail(tail: LightTail, spec_b, mout, inv, counts, scf, srow, sdata,
 
 def analysis_core_light(tail: LightTail, scalars, buf, metab, inv, counts,
                         scf, srow, sdata, hrow, hdata, info, valid_samples,
-                        *, nb: int, g_max: int):
+                        *, nb: int, g_max: int, fused: bool = True):
     """Raw-bits batched pipeline: Huffman decode (K1) + light_tail."""
     spec_b, mout = ek.decode_blocks(scalars, buf, metab, tail.luts)
     return light_tail(
         tail, spec_b, mout, inv, counts, scf, srow, sdata, hrow, hdata,
-        info, valid_samples, nb=nb, g_max=g_max,
+        info, valid_samples, nb=nb, g_max=g_max, fused=fused,
     )
 
 
@@ -357,7 +516,8 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 class Runner:
-    """Batched light-path analysis on one device."""
+    """Batched analysis on one device, over the light route
+    (analyze_unpacked_light) or the host-decoded one (analyze_unpacked)."""
 
     def __init__(self, device):
         self.device = resolve_device(device)
@@ -392,6 +552,20 @@ class Runner:
         marks = {"prep_s": t1 - t0, "h2d_s": t2 - t1, "launched": t2}
         return hist, loud_idx, peak, len(unpacked), marks
 
+    def dispatch_heavy(self, unpacked: list, sample_rate: int,
+                       n_channels: int):
+        """Prepare, copy and enqueue a batch of same-format host-decoded
+        tracks (frontend.unpack_data); returns a handle for collect()."""
+        tail = self.tail(sample_rate, n_channels)
+        t0 = time.perf_counter()
+        args = prepare_batch_arrays(unpacked, n_channels, 1)
+        t1 = time.perf_counter()
+        dev = [_to_device(a, self.device) for a in args]
+        t2 = time.perf_counter()
+        hist, loud_idx, peak = analysis_core(tail, *dev)
+        marks = {"prep_s": t1 - t0, "h2d_s": t2 - t1, "launched": t2}
+        return hist, loud_idx, peak, len(unpacked), marks
+
     def collect(self, handle):
         """Wait for a dispatched batch; returns (hist (B, 12000) int32 on
         the device, loudness (B,) np, peak (B,) np)."""
@@ -410,4 +584,13 @@ class Runner:
         """Analyze same-format light-unpacked tracks (one batch)."""
         return self.collect(
             self.dispatch_light(unpacked, sample_rate, n_channels)
+        )
+
+    def analyze_unpacked(self, unpacked: list, sample_rate: int,
+                         n_channels: int):
+        """Analyze same-format host-decoded tracks (one batch); the same
+        results as analyze_unpacked_light, through the host-decoded
+        route."""
+        return self.collect(
+            self.dispatch_heavy(unpacked, sample_rate, n_channels)
         )

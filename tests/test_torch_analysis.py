@@ -3,8 +3,10 @@
 analyze_track_internal / analyze_album / find_peak_amplitude of the port
 (plain kernels on the CPU) against the JAX package's own entry points:
 gain within 0.02 dB and peak within rtol 2e-4. The port package must
-never import jax: a subprocess imports every port module, runs a CPU
-slice and finds no jax in sys.modules.
+never import jax: a subprocess imports every port module (K3's
+decode/class_core.py, its probe tools/hk_dotprobe.py and the decode
+back-end decode/synthesis.py among them), runs a CPU slice on both
+routes and finds no jax in sys.modules.
 """
 
 import os
@@ -144,14 +146,26 @@ sys.meta_path.insert(0, _NoJax())
 import mp3rgain_tpu_torch
 for info in pkgutil.walk_packages(mp3rgain_tpu_torch.__path__, "mp3rgain_tpu_torch."):
     importlib.import_module(info.name)
+for name in ("decode.class_core", "decode.synthesis", "tools.hk_dotprobe",
+             "parallel.runner"):
+    assert "mp3rgain_tpu_torch." + name in sys.modules, name
 
 from mp3rgain_tpu.decode import frontend as fe
 from mp3rgain_tpu.testing import craft
+from mp3rgain_tpu_torch.decode import class_core, synthesis
 from mp3rgain_tpu_torch.parallel.runner import Runner
 
-u = fe.unpack_data_light_packed(craft.craft_count1b_stream(n_frames=12))
+data = craft.craft_count1b_stream(n_frames=12)
+u = fe.unpack_data_light_packed(data)
 hist, louds, peaks = Runner("cpu").analyze_unpacked_light([u], u.sample_rate, u.n_channels)
 assert hist.shape == (1, 12000) and peaks.shape == (1,)
+full = fe.unpack_data(data)
+h_hist, h_louds, h_peaks = Runner("cpu").analyze_unpacked([full], u.sample_rate, u.n_channels)
+assert h_hist.shape == (1, 12000) and h_peaks.shape == (1,)
+assert class_core.COUNT.plain >= 1
+pcm = synthesis.decode_batch(synthesis.batch_from_unpacked(full, "cpu"),
+                             synthesis.DecodeTables(int(full.info[0, fe.SR_ROW])))
+assert pcm.shape == (1, full.n_channels, full.n // full.n_channels * 576)
 print("JAX_LOADED", any(m == "jax" or m.startswith("jax.") for m in sys.modules))
 """
 

@@ -3,7 +3,8 @@
 The port copies the JAX package's numpy builders and host packers (it
 never imports the modules that hold them, which import jax). Every copy
 must stay bit-identical to its original, and the port's LightTail
-buffers must equal constants.from_jax_arrays over the JAX builders'
+buffers (the decode back-end's DecodeTables, with K3's bf16 class cores,
+among them) must equal constants.from_jax_arrays over the JAX builders'
 arrays, for every MP3 sample-rate row.
 """
 
@@ -12,6 +13,8 @@ import pytest
 import torch
 
 pytest.importorskip("jax")
+
+import ml_dtypes  # noqa: E402
 
 from mp3rgain_tpu.decode import entropy_kernel as jek  # noqa: E402
 from mp3rgain_tpu.decode import frontend as fe  # noqa: E402
@@ -53,6 +56,8 @@ def jax_arrays(sample_rate: int) -> dict:
     arrays = dict(zip(constants.PACK_NAMES, jek._luts_packed()[:4]))
     arrays.update(zip(constants.CONSTS_NAMES, jhk._consts(sr_row)))
     arrays["cores2"], arrays["head"], _, arrays["wins"] = jhk.natural_cores(sr_row)
+    (arrays["core_l"], arrays["core_s"], arrays["core_m"],
+     arrays["wins"]) = jsyn._fused_hybrid_cores()
     arrays["na"], arrays["nb"] = jsyn._tail_matrices_fused()
     for i, (b_taps, a_tail) in enumerate(iir.stage_plan(sample_rate)):
         tc, g, _ = jiir._group_kernels(b_taps, a_tail, 128)
@@ -148,6 +153,36 @@ def test_index_tables_equal_onehot_products(sr_row):
         want = sbg @ win[c]
         got = np.where(win_idx[c] >= 0, sbg[:, np.maximum(win_idx[c], 0)], 0)
         assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("sr_row", [0, 4, 8])
+def test_decode_tables_equal_jax_onehot_products(sr_row):
+    """DecodeTables' index selects reproduce the JAX decode's one-hot HIGH
+    dots (reorder, scalefactor and subblock-gain expansion) and its
+    per-class constants; chi + clo is the f32 core's bf16 split."""
+    from mp3rgain_tpu.decode.tables import CLASS_OF_KIND, row_tables
+
+    rt = row_tables(sr_row)
+    t = syn.DecodeTables(sr_row)
+    rng = np.random.default_rng(sr_row)
+    x = rng.integers(-8206, 8207, (5, 576)).astype(np.float32)
+    assert np.array_equal(x[:, t.perm_short.numpy()], x @ rt.perm_short_onehot.T)
+    scf = torch.from_numpy(rng.integers(0, 32, (5, 64)).astype(np.float32))
+    sbg = torch.from_numpy(rng.integers(0, 8, (5, 3)).astype(np.float32))
+    for c, (got_scf, got_sbg) in enumerate(zip(syn._expand(scf, t.slot_idx),
+                                               syn._expand(sbg, t.win_idx))):
+        assert np.array_equal(got_scf.numpy(), scf.numpy() @ rt.slot_onehot[c])
+        assert np.array_equal(got_sbg.numpy(), sbg.numpy() @ rt.win_onehot[c])
+    assert np.array_equal(t.class_of_kind.numpy(), CLASS_OF_KIND)
+    _assert_same(t.pretab.numpy(), rt.pretab, "pretab")
+    _assert_same(t.band_start.numpy(), rt.band_start, "band_start")
+    _assert_same(t.is_short.numpy(), rt.is_short.astype(np.float32), "is_short")
+    cores = np.stack(jsyn._fused_hybrid_cores()[:3]).astype(np.float32)
+    assert t.chi.dtype == t.clo.dtype == torch.bfloat16
+    hi = t.chi.to(torch.float32).numpy()
+    assert np.array_equal(hi, cores.astype(ml_dtypes.bfloat16).astype(np.float32))
+    err = np.abs(hi + t.clo.to(torch.float32).numpy() - cores)
+    assert (err <= np.abs(cores) * 2.0 ** -16).all()
 
 
 def test_luts_from_packed_equal_plain_tables():

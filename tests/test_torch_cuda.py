@@ -1,5 +1,5 @@
 """Torch port on a CUDA card: each hand-written kernel against its plain
-version, and the light path on the card against the CPU.
+version, and both routes on the card against the CPU.
 
 Every test carries the `cuda` marker and skips where
 torch.cuda.is_available() is false. The file needs neither jax nor an MP3
@@ -18,8 +18,10 @@ import torch
 from mp3rgain_tpu.decode import frontend as fe
 from mp3rgain_tpu.testing import craft
 from mp3rgain_tpu_torch import _build
+from mp3rgain_tpu_torch.decode import class_core as cc
 from mp3rgain_tpu_torch.decode import entropy_kernel as ek
 from mp3rgain_tpu_torch.decode import hybrid_kernel as hk
+from mp3rgain_tpu_torch.decode import synthesis as syn
 from mp3rgain_tpu_torch.parallel import runner as pr
 from mp3rgain_tpu_torch.testing import make_smoke_data as smoke
 
@@ -126,3 +128,77 @@ def test_failed_kernel_library_raises(dev, monkeypatch):
         ek.decode_blocks(*_on(dev, (p.scalars, p.buf, p.meta)),
                          ek.EntropyLuts().to(dev))
     assert ek.COUNT.plain == before
+
+
+@pytest.mark.parametrize("ncore,npass,select", [(1, 1, False), (2, 2, False),
+                                                (3, 3, False), (3, 3, True),
+                                                (3, 2, True)])
+def test_k3_kernel_matches_plain(ncore, npass, select, dev):
+    rng = np.random.default_rng(ncore * 10 + npass)
+    rows = 1000  # ragged: 7 full tiles of 128 rows and a partial one
+    x = torch.from_numpy(rng.standard_normal((2, rows, 576)).astype(np.float32)).to(dev)
+    cores = torch.from_numpy(rng.standard_normal((ncore, 576, 1152)).astype(np.float32))
+    chi, clo = (t.to(dev) for t in cc.split_bf16(cores))
+    row_core = None
+    if select:
+        rc = rng.integers(0, ncore, (2, rows)).astype(np.int32)
+        rc[0, :256] = 0  # tiles of one class skip the other cores
+        rc[1, 300:310] = -1  # rows of no class come out zero
+        row_core = torch.from_numpy(rc).to(dev)
+    k0, p0 = cc.COUNT.kernel, cc.COUNT.plain
+    got = cc.class_core_gemm(x, chi, clo, npass=npass, row_core=row_core)
+    torch.cuda.synchronize()
+    assert (cc.COUNT.kernel, cc.COUNT.plain) == (k0 + 1, p0)
+    want = cc.class_core_gemm_reference(x, chi, clo, npass=npass, row_core=row_core)
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+    if select:
+        assert not got[1, 300:310].any()
+
+
+def test_k3_failed_library_raises(dev, monkeypatch):
+    def broken():
+        raise RuntimeError("build failed")
+
+    monkeypatch.setattr(_build, "library", broken)
+    x = torch.zeros((1, 4, 576), device=dev)
+    chi = torch.zeros((1, 576, 1152), dtype=torch.bfloat16, device=dev)
+    before = cc.COUNT.plain
+    with pytest.raises(RuntimeError, match="build failed"):
+        cc.class_core_gemm(x, chi, chi)
+    assert cc.COUNT.plain == before
+
+
+def test_heavy_route_on_card_matches_cpu_and_light(dev):
+    data = _clip(smoke.TRANSIENT_TRACK)
+    full = fe.unpack_data(data)
+    cc.COUNT.reset()
+    hist, louds, peaks = pr.Runner(dev).analyze_unpacked(
+        [full, full], full.sample_rate, full.n_channels)
+    assert cc.COUNT.kernel == 1 and cc.COUNT.plain == 0
+    c_hist, c_louds, c_peaks = pr.Runner("cpu").analyze_unpacked(
+        [full], full.sample_rate, full.n_channels)
+    assert torch.equal(hist.sum(dim=1).cpu(), c_hist.sum(dim=1).repeat(2))
+    assert np.all(np.abs(louds - c_louds[0]) <= 0.02 + 1e-9)
+    np.testing.assert_allclose(peaks, c_peaks[0], rtol=2e-4, atol=1e-6)
+
+    # light_tail(fused=False) on the card equals the heavy route exactly.
+    u = fe.unpack_data_light_packed(data)
+    prep, rest, g_max = pr.prepare_batch_arrays_light([u, u], u.n_channels)
+    args = _on(dev, (prep.scalars, prep.buf, prep.meta, prep.inv) + tuple(rest))
+    tail = pr.LightTail(u.sample_rate, u.n_channels).to(dev)
+    light = pr.analysis_core_light(tail, *args, nb=prep.nb, g_max=g_max, fused=False)
+    heavy_args = _on(dev, pr.prepare_batch_arrays([full, full], full.n_channels))
+    heavy = pr.analysis_core(tail, *heavy_args)
+    for a, b in zip(light, heavy):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", [smoke.MONO_TRACK, smoke.TRANSIENT_TRACK])
+def test_decode_file_on_card_matches_cpu(name, dev):
+    path = os.path.join(smoke.DATA_DIR, name)
+    got, sr = syn.decode_file(path, device=dev)
+    want, sr_cpu = syn.decode_file(path, device="cpu")
+    assert sr == sr_cpu and got.shape == want.shape
+    bound = 5e-4 * np.sqrt((want ** 2).mean()) + 1e-5
+    assert np.abs(got - want).max() < bound

@@ -5,7 +5,9 @@ the CPU) against the JAX package's _light_tail with fused=True and with
 fused=False, on the same prepared batches: per-track window counts
 exactly equal, loudness index within 2 histogram bins and peak within
 rtol 2e-4 — the tolerances of tests/test_hybrid_kernel.py (GEMM
-summation order and transcendental rounding differ). Batches: 44.1 kHz
+summation order and transcendental rounding differ). The port's unfused
+light tail (fused=False, the host-decoded route's analysis_tail) is held
+to the JAX package's fused=False tail the same way. Batches: 44.1 kHz
 joint stereo (2 tracks) and 22.05 kHz mono MPEG-2.
 """
 
@@ -22,6 +24,7 @@ from mp3rgain_tpu.decode import frontend as fe  # noqa: E402
 from mp3rgain_tpu.parallel import runner as jpr  # noqa: E402
 from mp3rgain_tpu.testing import fixtures  # noqa: E402
 from mp3rgain_tpu.utils import bufpool  # noqa: E402
+from mp3rgain_tpu_torch.decode import class_core as cc  # noqa: E402
 from mp3rgain_tpu_torch.decode import entropy_kernel as ek  # noqa: E402
 from mp3rgain_tpu_torch.decode import hybrid_kernel as hk  # noqa: E402
 from mp3rgain_tpu_torch.ops import histogram as hi  # noqa: E402
@@ -100,6 +103,24 @@ def test_light_tail_matches_jax(batches, name, fused):
     assert hist.shape == (len(rest[0]), hi.HISTOGRAM_SIZE)
     _assert_close_to_jax(hist.numpy(), loud_idx.numpy(), peak.numpy(),
                          jax_out[fused], len(ups))
+
+
+@pytest.mark.parametrize("name", sorted(BATCHES))
+def test_light_tail_unfused_matches_jax(batches, name):
+    ups, sr, nch, jax_out = batches[name]
+    cpu = torch.device("cpu")
+    prep, rest, g_max = pr.prepare_batch_arrays_light(ups, nch, 1)
+    host = (prep.scalars, prep.buf, prep.meta, prep.inv) + tuple(rest)
+    args = [pr._to_device(a, cpu) for a in host]
+    bufpool.give(prep.buf, prep.meta, rest[1], rest[6])
+    tail = pr.LightTail(sr, nch)
+    spec_b, mout = ek.decode_blocks(*args[:3], tail.luts)
+    counts0 = (hk.COUNT.plain, cc.COUNT.plain)
+    hist, loud_idx, peak = pr.light_tail(tail, spec_b, mout, *args[3:],
+                                         nb=prep.nb, g_max=g_max, fused=False)
+    assert (hk.COUNT.plain, cc.COUNT.plain) == (counts0[0], counts0[1] + 1)
+    _assert_close_to_jax(hist.numpy(), loud_idx.numpy(), peak.numpy(),
+                         jax_out[False], len(ups))
 
 
 @pytest.mark.parametrize("name", sorted(BATCHES))
