@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the three hand-written kernels from the sources in this checkout
-(the CUDA Huffman decode K1 and the CUDA split-bf16 class-core GEMM K3
-with nvcc, one process per source, and the Triton requantize + stereo
-pass K2), holds each against its plain PyTorch version on the card, then
+Builds the port's host library (g++, mp3rgain_tpu_torch/_native) and the
+three hand-written kernels from the sources in this checkout (the CUDA
+Huffman decode K1 and the CUDA split-bf16 class-core GEMM K3 with nvcc,
+one process per source, all started together with the g++ build, and the
+Triton requantize + stereo pass K2), holds each against its plain PyTorch
+version on the card and times it beside its bound (and K3 beside one
+cuBLAS call computing the same product, which the port never calls), then
 runs the port's two routes over 64 copies of a 60 s, 44.1 kHz
 joint-stereo 192 kbps track, the JAX package's bench batch: the light
 main path (Runner.analyze_unpacked_light, K1 + K2) and the host-decoded
@@ -17,20 +20,22 @@ on committed clips. Every check raises on failure; there is no CPU
 branch. Output, one phase per line:
 
   device / nvidia-smi name and power limit / build seconds and K1/K3
-  registers and spills / K1, K2 and K3 agreement and times / light slice
+  registers, shared memory and spills / K1, K2 and K3 agreement, times
+  and bounds / light slice
   launch counts, CPU agreement / heavy slice launch counts, CPU and light
   agreement, light unfused == heavy / decode_file / entry-point gains /
   times / a JSON line of per-kernel results /
   last line {"ok": true, "device": {"platform": "gpu", ...}}.
 
-Imports nothing of JAX. Exits non-zero without a result line when no
-CUDA device is available.
+Imports nothing of JAX and nothing of the JAX package. Exits non-zero
+without a result line when no CUDA device is available.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import threading
 import time
 
 K2_RTOL = 1e-5
@@ -41,11 +46,28 @@ K3_RTOL = 1e-5
 K3_ATOL_REL = 1e-5  # atol = K3_ATOL_REL * max|plain|
 BATCH_TRACKS = 64
 PROBE_ROWS = 294_912  # the TPU probe's R, per channel
+# Published H100 SXM peaks (NVIDIA's data sheet, dense) for bound_ms: the
+# least time for a kernel's work is the larger of its bytes (each input
+# read once, each output written once) over the HBM rate and its
+# operations over the peak rate of their type.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
 
 
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_of(n_bytes: float, flops: float = 0.0) -> tuple[float, str]:
+    """(bound_ms, bound_by) for n_bytes of traffic and flops of bf16 MMA."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def main() -> None:
@@ -62,31 +84,51 @@ def main() -> None:
     print(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"nvidia-smi: {smi}", flush=True)
 
-    from mp3rgain_tpu.decode import frontend as fe
-    from mp3rgain_tpu.testing import craft
-    from mp3rgain_tpu_torch import _build, analysis
+    from mp3rgain_tpu_torch import _build, analysis, native
     from mp3rgain_tpu_torch.decode import class_core as cc
     from mp3rgain_tpu_torch.decode import entropy_kernel as ek
+    from mp3rgain_tpu_torch.decode import frontend as fe
     from mp3rgain_tpu_torch.decode import hybrid_kernel as hk
     from mp3rgain_tpu_torch.decode import synthesis as syn
     from mp3rgain_tpu_torch.parallel import runner as pr
+    from mp3rgain_tpu_torch.testing import craft
     from mp3rgain_tpu_torch.testing import make_smoke_data as smoke
     from mp3rgain_tpu_torch.tools import hk_dotprobe
 
     torch.set_num_threads(min(8, os.cpu_count() or 1))
 
     # --- 2. build ------------------------------------------------------------
+    # The host library (g++) builds in a thread while nvcc builds the kernels.
+    host = {}
+
+    def build_host():
+        t = time.perf_counter()
+        try:
+            native.build(force=True)
+        except Exception as e:  # re-raised below
+            host["error"] = e
+        host["s"] = time.perf_counter() - t
+
+    gxx = threading.Thread(target=build_host)
+    gxx.start()
     nvcc_s = _build.build(force=True)
-    _build.library()
-    resources = {}  # kernel -> its ptxas register and spill lines
+    gxx.join()
+    if "error" in host:
+        raise host["error"]
+    native._lib.load()
+    k3_smem = _build.library().mg_cuda_class_core_gemm_smem_bytes()
+    resources = {}  # kernel -> its distinct ptxas register, smem and spill lines
     entry = None
     for ln in _build.build_log.splitlines():
         if "Compiling entry function" in ln:
-            entry = "K1" if "entropy_decode" in ln else "K3" if "class_core" in ln else ln
+            entry = ("K1" if "entropy_decode_kernel" in ln else
+                     "K3" if "class_core_gemm_wgmma" in ln else ln)
         elif entry and ("registers" in ln or "spill" in ln):
-            resources.setdefault(entry, []).append(
-                " ".join(ln.replace("ptxas info    :", "").split()))
+            line = " ".join(ln.replace("ptxas info    :", "").split())
+            if line not in resources.setdefault(entry, []):
+                resources[entry].append(line)
     check(set(resources) == {"K1", "K3"}, f"ptxas reported K1 and K3: {sorted(resources)}")
+    resources["K3"].append(f"{k3_smem} bytes dynamic smem")
     regs = [f"{k}: {', '.join(v)}" for k, v in sorted(resources.items())]
     t0 = time.perf_counter()
     tables0 = hk.HybridTables(0).to(dev)
@@ -96,8 +138,8 @@ def main() -> None:
                             tables0)
     torch.cuda.synchronize()
     triton_s = time.perf_counter() - t0
-    print(f"build: K1 + K3 nvcc {nvcc_s:.2f} s ({'; '.join(regs)}); "
-          f"K2 triton jit {triton_s:.2f} s", flush=True)
+    print(f"build: host library g++ {host['s']:.2f} s; K1 + K3 nvcc {nvcc_s:.2f} s "
+          f"({'; '.join(regs)}); K2 triton jit {triton_s:.2f} s", flush=True)
 
     # --- 3. inputs -----------------------------------------------------------
     def read(fname):
@@ -175,6 +217,9 @@ def main() -> None:
     nb = prep.nb
     spec_b, mout, err = k1_compare(batch[:3])
     k1_err = max(k1_err, err)
+    # K1's integer decode steps have no rate in the published table: its
+    # bound counts bytes only (inputs, tables, outputs).
+    k1_bound = bound_of(nbytes(*batch[:3], spec_b, mout) + nbytes(*luts.buffers()))
     spec, big_end, c1end, _ = ek.unsort_blocks(spec_b, mout, batch[3], nb=nb)
     host_equal(spec, big_end, c1end, full, BATCH_TRACKS)
     del spec, big_end, c1end
@@ -183,7 +228,8 @@ def main() -> None:
     print(f"K1 entropy_decode (CUDA C++): exact against the plain version on "
           f"{len(streams)} streams and the {BATCH_TRACKS}-track batch "
           f"(nb={nb}, {nb * ek.LANES} lanes), unsorted spectra equal the host "
-          f"decoder; kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.1f} ms {card}",
+          f"decoder; kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.1f} ms, bound "
+          f"{k1_bound[0]:.3f} ms ({k1_bound[1]}) {card}",
           flush=True)
 
     # --- 5. K2: Triton kernel against the plain version -----------------------
@@ -204,13 +250,13 @@ def main() -> None:
     k2_plain_ms = cuda_ms(
         lambda: hk.fused_requant_stereo_reference(*cm, tail.hybrid), 3)
     rows = cm[0].shape[1]
-    gbytes = sum(t.numel() * t.element_size() for t in cm) / 1e9 \
-        + 2 * rows * 576 * 4 / 1e9
+    gbytes = (nbytes(*cm) + 2 * rows * 576 * 4) / 1e9  # inputs + f32 output
+    k2_bound = bound_of(gbytes * 1e9)
     print(f"K2 requant_stereo (Triton): rows {rows} x 2 channels, max_abs_err "
           f"{k2_err:.3e} of max|ref| {scale:.1f} (rtol {K2_RTOL}, atol "
           f"{K2_ATOL_REL}*max|ref|); kernel {k2_ms:.3f} ms "
-          f"({gbytes / (k2_ms / 1e3):.0f} GB/s), plain {k2_plain_ms:.3f} ms "
-          f"{card}", flush=True)
+          f"({gbytes / (k2_ms / 1e3):.0f} GB/s), plain {k2_plain_ms:.3f} ms, bound "
+          f"{k2_bound[0]:.3f} ms ({k2_bound[1]}) {card}", flush=True)
     del cm, batch
     torch.cuda.empty_cache()
 
@@ -226,20 +272,62 @@ def main() -> None:
               f"K3 within rtol {K3_RTOL}, atol {K3_ATOL_REL}*max|plain| "
               f"(max_abs_err {err:.3e} of {scale:.3e})")
         del got, want
-        k_ms = cuda_ms(lambda: cc.class_core_gemm(x, chi, clo, row_core=row_core), 5)
         p_ms = cuda_ms(lambda: cc.class_core_gemm_reference(
             x, chi, clo, row_core=row_core), 2)
-        return err, scale, k_ms, p_ms
+        return err, scale, p_ms
+
+    def k3_times(x, chi, clo, row_core, cores):
+        """The kernel and its yardstick timed in turns (kernel, library,
+        library, kernel; 5 calls each), as {name: [ms, ms]}. The
+        yardstick: one cuBLAS bf16 GEMM, torch.mm([xh | xh | xl] per core,
+        [chi_k; clo_k; chi_k] per core, out_dtype=f32), K = 1728 per core,
+        on operands split and concatenated before and not timed. The port
+        never calls it."""
+        xh, xl = cc.split_bf16(x.reshape(-1, 576))
+        a = torch.cat([xh, xh, xl] * len(cores), dim=1)
+        b = torch.cat([t for k in cores for t in (chi[k], clo[k], chi[k])], dim=0)
+        del xh, xl
+        fns = {"kernel": lambda: cc.class_core_gemm(x, chi, clo, row_core=row_core),
+               "library": lambda: torch.mm(a, b, out_dtype=torch.float32)}
+        ms = {"kernel": [], "library": []}
+        for name in ("kernel", "library", "library", "kernel"):
+            ms[name].append(cuda_ms(fns[name], 5))
+        del a, b, fns
+        torch.cuda.empty_cache()
+        return ms
+
+    def turns(v):
+        return f"{sum(v) / len(v):.3f} ms (turns {', '.join(f'{t:.3f}' for t in v)})"
+
+    def k3_bound(x, chi, clo, row_core):
+        """K3's bound on this run's data: each row's own cores' 3 passes
+        (all cores when row_core is None), x and z once, the cores the
+        rows select once."""
+        c, r = x.shape[:2]
+        used = range(chi.shape[0]) if row_core is None else [
+            k for k in range(chi.shape[0]) if bool((row_core == k).any())]
+        products = c * r * len(used) if row_core is None else int(
+            ((row_core >= 0) & (row_core < chi.shape[0])).sum())
+        flops = 2 * 3 * products * 576 * 1152
+        n = nbytes(x) + c * r * 1152 * 4 + 2 * len(used) * nbytes(chi[0])
+        if row_core is not None:
+            n += nbytes(row_core)
+        return bound_of(n, flops)
 
     # (a) the TPU probe's shape and inputs: 2 channels, 3 cores summed, 3 passes.
     x, chi, clo = (t.to(dev) for t in hk_dotprobe.make_inputs(PROBE_ROWS, 3))
-    k3p_err, k3p_scale, k3p_ms, k3p_plain_ms = k3_compare(x, chi, clo, None)
+    k3p_err, k3p_scale, k3p_plain_ms = k3_compare(x, chi, clo, None)
+    k3p_t = k3_times(x, chi, clo, None, [0, 1, 2])
+    k3p_ms, k3p_lib_ms = (sum(v) / len(v) for v in (k3p_t["kernel"], k3p_t["library"]))
+    k3p_bound = k3_bound(x, chi, clo, None)
     fl = hk_dotprobe.flops(PROBE_ROWS, 3, 3)
-    print(f"K3 class_core_gemm (CUDA C++), probe shape R={PROBE_ROWS} x 2 channels, "
-          f"NCORE 3, NPASS 3: max_abs_err {k3p_err:.3e} of max|plain| "
-          f"{k3p_scale:.3e}; kernel {k3p_ms:.3f} ms ({fl / k3p_ms / 1e9:.1f} TFLOP/s), "
-          f"plain {k3p_plain_ms:.3f} ms ({fl / k3p_plain_ms / 1e9:.1f} TFLOP/s) {card}",
-          flush=True)
+    print(f"K3 class_core_gemm (CUDA C++ wgmma + TMA), probe shape R={PROBE_ROWS} x 2 "
+          f"channels, NCORE 3, NPASS 3: max_abs_err {k3p_err:.3e} of max|plain| "
+          f"{k3p_scale:.3e}; kernel {turns(k3p_t['kernel'])} "
+          f"({fl / k3p_ms / 1e9:.1f} TFLOP/s), plain {k3p_plain_ms:.3f} ms "
+          f"({fl / k3p_plain_ms / 1e9:.1f} TFLOP/s), library torch.mm K=5184 "
+          f"{turns(k3p_t['library'])}, bound {k3p_bound[0]:.3f} ms "
+          f"({k3p_bound[1]}; {k3p_bound[0] / k3p_ms:.1%} of it) {card}", flush=True)
     # (b) the host-decoded route's shape: the batch's 64 x g_max records as
     # one channel, the real decode cores, each record's layout class.
     cls = syn._classes(syn.batch_from_unpacked(full, dev).kind, tail.decode)
@@ -247,16 +335,23 @@ def main() -> None:
     row_core = torch.from_numpy(np.tile(cls, BATCH_TRACKS)[None].astype(np.int32)).to(dev)
     x = x.view(1, -1, 576)
     check(x.shape[1] == row_core.shape[1], "heavy shape: 64 x g_max records")
-    k3_err, k3_scale, k3_ms, k3_plain_ms = k3_compare(
+    k3_err, k3_scale, k3_plain_ms = k3_compare(
         x, tail.decode.chi, tail.decode.clo, row_core)
+    # The library call runs the long core for every row (one call cannot
+    # select per row; 99.93% of this batch's rows are long).
+    k3_t = k3_times(x, tail.decode.chi, tail.decode.clo, row_core, [0])
+    k3_ms, k3_lib_ms = (sum(v) / len(v) for v in (k3_t["kernel"], k3_t["library"]))
+    k3h_bound = k3_bound(x, tail.decode.chi, tail.decode.clo, row_core)
     heavy_rows = x.shape[1]
     fl_h = 2 * 3 * heavy_rows * 576 * 1152
     shares = np.bincount(cls, minlength=3) / len(cls)
-    print(f"K3 class_core_gemm (CUDA C++), heavy shape R={heavy_rows} x 1 channel, "
-          f"row_core classes long/short/mixed {shares.round(4).tolist()}: max_abs_err "
-          f"{k3_err:.3e} of max|plain| {k3_scale:.3e}; kernel {k3_ms:.3f} ms "
-          f"({fl_h / k3_ms / 1e9:.1f} TFLOP/s useful), plain {k3_plain_ms:.3f} ms {card}",
-          flush=True)
+    print(f"K3 class_core_gemm (CUDA C++ wgmma + TMA), heavy shape R={heavy_rows} x 1 "
+          f"channel, row_core classes long/short/mixed {shares.round(4).tolist()}: "
+          f"max_abs_err {k3_err:.3e} of max|plain| {k3_scale:.3e}; kernel "
+          f"{turns(k3_t['kernel'])} ({fl_h / k3_ms / 1e9:.1f} TFLOP/s useful), plain "
+          f"{k3_plain_ms:.3f} ms, library torch.mm K=1728 {turns(k3_t['library'])}, "
+          f"bound {k3h_bound[0]:.3f} ms "
+          f"({k3h_bound[1]}; {k3h_bound[0] / k3_ms:.1%} of it) {card}", flush=True)
     del x, chi, clo, row_core
     torch.cuda.empty_cache()
 
@@ -391,25 +486,31 @@ def main() -> None:
           f"{h_timing['device_s']:.3f} s (sum {h_split:.3f}); real-time factor "
           f"{audio_s / h_wall_s:.0f}x; device-only {audio_s / h_timing['device_s']:.0f}x; "
           f"peak device memory {h_peak_gb:.2f} GB; K3 heavy shape {k3_ms:.3f} ms vs "
-          f"plain {k3_plain_ms:.3f} ms; K3 probe shape {k3p_ms:.3f} ms vs plain "
-          f"{k3p_plain_ms:.3f} ms", flush=True)
+          f"plain {k3_plain_ms:.3f} ms, library {k3_lib_ms:.3f} ms; K3 probe shape "
+          f"{k3p_ms:.3f} ms vs plain {k3p_plain_ms:.3f} ms, library {k3p_lib_ms:.3f} ms",
+          flush=True)
 
     kernels = [
         {"name": "entropy_decode", "route": "cuda",
          "source": "mp3rgain_tpu_torch/csrc/entropy_decode.cu",
          "replaces": "mp3rgain_tpu/decode/entropy_kernel.py:154",
          "launches": counts["entropy_decode"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
         {"name": "requant_stereo", "route": "triton",
          "source": "mp3rgain_tpu_torch/decode/hybrid_kernel.py",
          "replaces": "mp3rgain_tpu/decode/hybrid_kernel.py:163",
          "launches": counts["requant_stereo"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": None},
         {"name": "class_core_gemm", "route": "cuda",
          "source": "mp3rgain_tpu_torch/csrc/class_core_gemm.cu",
          "replaces": "tools/hk_dotprobe.py:22",
          "launches": h_counts["class_core_gemm"], "max_abs_err": max(k3_err, k3p_err),
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3h_bound[0],
+         "bound_by": k3h_bound[1], "library_ms": k3_lib_ms,
+         "probe_ms": k3p_ms, "probe_plain_ms": k3p_plain_ms,
+         "probe_bound_ms": k3p_bound[0], "probe_library_ms": k3p_lib_ms},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,13 @@ class-core GEMMs → polyphase GEMMs → the same IIR and histogram). The JAX
 package's Pallas kernels are rewritten by hand for NVIDIA Hopper: the
 Huffman decode in CUDA C++ (csrc/entropy_decode.cu), the fused
 requantize + stereo pass in Triton (decode/hybrid_kernel.py) and the
-split-bf16 class-core GEMM in CUDA C++ (csrc/class_core_gemm.cu). Shared
-host code (the native C++ core and the MP3 front-end) comes from
-mp3rgain_tpu; this package never imports jax.
+split-bf16 class-core GEMM in CUDA C++ (csrc/class_core_gemm.cu). The
+host code it needs from mp3rgain_tpu (the native C++ front-end in
+_native/, built with g++ on first use by native.py; the MP3 front-end,
+the table builders, the filter coefficients, the buffer pool, the
+crafted streams) is copied into this package, which imports neither
+mp3rgain_tpu nor jax; tests/test_torch_host_copies.py holds the copies
+equal to their originals.
 
 Entry points: analysis.analyze_track_internal / analyze_album /
 find_peak_amplitude, parallel.runner.Runner.analyze_unpacked_light and

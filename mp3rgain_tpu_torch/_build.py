@@ -117,6 +117,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.mg_cuda_class_core_gemm.restype = ctypes.c_int
     lib.mg_cuda_class_core_gemm.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp]
+    lib.mg_cuda_class_core_gemm_smem_bytes.restype = ctypes.c_int
+    lib.mg_cuda_class_core_gemm_smem_bytes.argtypes = []
 
 
 def library() -> ctypes.CDLL:

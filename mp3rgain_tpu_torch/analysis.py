@@ -10,25 +10,20 @@ ported yet (ROADMAP Queue 1 item 10) and raises NotImplementedError.
 
 from __future__ import annotations
 
-import ctypes
 import os
 
 import torch
 
-from mp3rgain_tpu.decode import frontend
-from mp3rgain_tpu.native import _inbuf, _lib, _u8p
-from mp3rgain_tpu.replaygain import (
+from .decode import frontend
+from .native import _inbuf, _lib
+from .ops import histogram as hi
+from .parallel.runner import SAMPLE_SCALE_16BIT, Runner
+from .replaygain import (
     PINK_REF,
     AlbumGainResult,
     PeakAmplitudeResult,
     ReplayGainResult,
 )
-
-from .ops import histogram as hi
-from .parallel.runner import SAMPLE_SCALE_16BIT, Runner
-
-_lib.mg_mp4_is_mp4.restype = ctypes.c_int32
-_lib.mg_mp4_is_mp4.argtypes = [_u8p, ctypes.c_size_t]
 
 
 class AnalysisError(RuntimeError):

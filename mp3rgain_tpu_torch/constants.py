@@ -94,9 +94,8 @@ def decode_state(sr_row: int, core_l, core_s, core_m, wins, na,
       pretab, is_short (3, 576) f32, band_start (3, 576) int32
       chi, clo (3, 576, 1152) bf16  long/short/mixed cores, split once
       wins (4, 1152) f32, synth_na, synth_nb (576, 576) f32"""
-    from mp3rgain_tpu.decode.tables import CLASS_OF_KIND, row_tables
-
     from .decode.class_core import split_bf16
+    from .decode.tables import CLASS_OF_KIND, row_tables
 
     def f32(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
@@ -137,8 +136,7 @@ def from_jax_arrays(arrays: dict[str, np.ndarray], sample_rate: int,
 
     (natural_cores' and _fused_hybrid_cores' wins are the same array.)
     Load the result with LightTail.load_state_dict."""
-    from mp3rgain_tpu.decode.format_tables import SR_ROW
-
+    from .decode.format_tables import SR_ROW
     from .ops.iir import stage_plan
 
     if n_channels not in (1, 2):

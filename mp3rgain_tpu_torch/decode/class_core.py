@@ -13,9 +13,10 @@ per-row class select. The contract:
     xh = bf16_rn(x), xl = bf16_rn(x - f32(xh))
 
 The lo x lo term is left out, as in the probe. On CUDA tensors the
-wrapper launches the hand-written kernel csrc/class_core_gemm.cu
-(tensor-core MMA, bf16 operands, f32 accumulation); on CPU tensors it
-runs class_core_gemm_reference. A failed build or launch raises.
+wrapper launches the hand-written kernel csrc/class_core_gemm.cu (wgmma
+with TMA-fed shared memory, bf16 operands, f32 accumulation; the three
+passes as one K loop); on CPU tensors it runs class_core_gemm_reference.
+A failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -68,6 +69,11 @@ def class_core_gemm(x: torch.Tensor, chi: torch.Tensor, clo: torch.Tensor,
         return class_core_gemm_reference(x, chi, clo, npass=npass, row_core=row_core)
     if dev.type != "cuda":
         raise ValueError(f"class_core_gemm: unsupported device {dev}")
+    if ncore > 31:
+        raise ValueError(f"class_core_gemm: ncore {ncore}, the kernel takes 1 to 31")
+    for name, t in (("x", x), ("chi", chi), ("clo", clo)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"class_core_gemm: {name} is not 16-byte aligned (TMA)")
     out = torch.empty((c, r, N), dtype=torch.float32, device=dev)
     if c * r == 0:
         return out

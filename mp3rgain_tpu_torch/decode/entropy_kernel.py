@@ -28,31 +28,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from mp3rgain_tpu.decode import frontend as fe
-from mp3rgain_tpu.decode.entropy_tables import (
-    F2_L3,
-    GROUP_COUNT1_A,
-    build_luts,
-)
-from mp3rgain_tpu.native import _lib as _native_lib
-
 from .. import _build
 from ..device import LaunchCount, check_tensor
+from ..native import _lib
+from ..utils import bufpool
+from . import frontend as fe
+from .entropy_tables import F2_L3, GROUP_COUNT1_A, build_luts
 
-
-def _declare_pack(lib):
-    u64p = ctypes.POINTER(ctypes.c_uint64)
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    u16p = ctypes.POINTER(ctypes.c_uint16)
-    lib.mg_entropy_pack4.restype = None
-    lib.mg_entropy_pack4.argtypes = [
-        u64p, u64p, ctypes.c_int64, ctypes.c_int64, i32p, ctypes.c_int64,
-        ctypes.c_int64, ctypes.c_int64, i32p, i32p, ctypes.c_int64,
-        ctypes.c_int64, i32p, u16p,
-    ]
-
-
-_declare_pack(_native_lib)
 
 # Granule-channels per sorted block (the JAX package's shipped value).
 LANES = 2048
@@ -196,7 +178,7 @@ class PreparedEntropy:
 
     The numpy arrays are the exact device transfer payload. buf and meta
     come from the shared buffer pool: hand them back
-    (mp3rgain_tpu.utils.bufpool.give) once the device copy has completed.
+    (utils.bufpool.give) once the device copy has completed.
     """
 
     scalars: np.ndarray  # (nb, 3 + SUBG_N) int32 [nbig, ncnt, nw8, off…]
@@ -232,9 +214,6 @@ def prepare_batch(md, meta, quantize_nb: bool = False,
     LIGHT_META_N) int32 array or list. force_nb / force_g_pad pin the
     shapes (>= the data's requirements).
     """
-    from mp3rgain_tpu.native import _lib
-    from mp3rgain_tpu.utils import bufpool
-
     md_list = list(md) if isinstance(md, (list, tuple)) else [md]
     meta_list = list(meta) if isinstance(meta, (list, tuple)) else [meta]
     md_list = [np.ascontiguousarray(m) for m in md_list]

@@ -37,9 +37,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from mp3rgain_tpu.decode.tables import KIND_MIXED, build_tables, row_tables
-
 from ..device import LaunchCount, check_tensor
+from .tables import KIND_MIXED, build_tables, row_tables
 
 # gmeta field indices (int32, one row per granule-channel).
 GM_GG = 0  # global_gain

@@ -27,12 +27,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from mp3rgain_tpu.decode import frontend as fe
-from mp3rgain_tpu.decode.tables import build_tables
-
 from ..device import resolve_device
+from . import frontend as fe
 from .class_core import class_core_gemm
 from .hybrid_kernel import _is_ratios
+from .tables import _window_long, build_tables
 
 # Alias-reduction butterfly coefficients (derived from the ISO ci values).
 _CI = np.array([-0.6, -0.535, -0.33, -0.185, -0.095, -0.041, -0.0142, -0.0037])
@@ -69,8 +68,6 @@ def _fused_hybrid_cores():
     unwindowed (the long window is applied per granule afterwards); the
     short composite and the mixed splice bake their windows. Built in
     f64."""
-    from mp3rgain_tpu.decode.tables import _window_long
-
     t = build_tables()
     i = np.arange(36)[:, None]
     k = np.arange(18)[None, :]

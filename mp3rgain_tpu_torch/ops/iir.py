@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mp3rgain_tpu.ops.coeffs import (
+from .coeffs import (
     DEGENERATE_RATES,
     DENORMAL_PREVENTION,
     YULE_A,

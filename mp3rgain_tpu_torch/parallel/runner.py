@@ -30,15 +30,16 @@ import numpy as np
 import torch
 from torch import nn
 
-from mp3rgain_tpu.decode import frontend as fe
-from mp3rgain_tpu.decode.format_tables import SR_ROW
-
 from ..decode import entropy_kernel as ek
+from ..decode import frontend as fe
 from ..decode import hybrid_kernel as hk
+from ..decode.format_tables import SR_ROW
 from ..decode.synthesis import DecodeTables, GranuleBatch, _derive_fields, decode_batch
 from ..device import resolve_device
+from ..native import _lib
 from ..ops import histogram as hi
 from ..ops.iir import EqualLoudness
+from ..utils import bufpool
 
 SAMPLE_SCALE_16BIT = 32768.0
 
@@ -74,9 +75,6 @@ def prepare_batch_arrays_light(
     scf, info) come from the shared buffer pool: hand them back once the
     device copy has completed."""
     import ctypes
-
-    from mp3rgain_tpu.native import _lib
-    from mp3rgain_tpu.utils import bufpool
 
     bsz = len(unpacked)
     g_max = max(u.n for u in unpacked)
@@ -536,8 +534,6 @@ class Runner:
                        n_channels: int):
         """Prepare, copy and enqueue a batch of same-format tracks;
         returns a handle for collect()."""
-        from mp3rgain_tpu.utils import bufpool
-
         tail = self.tail(sample_rate, n_channels)
         t0 = time.perf_counter()
         prep, rest, g_max = prepare_batch_arrays_light(unpacked, n_channels, 1)

@@ -1,8 +1,9 @@
 """Torch port: host batch prep and constant tables against the JAX package.
 
 The port copies the JAX package's numpy builders and host packers (it
-never imports the modules that hold them, which import jax). Every copy
-must stay bit-identical to its original, and the port's LightTail
+imports nothing of the JAX package). Every copy must stay bit-identical
+to its original: each side here runs on its own package's host code
+(front-end, native library, buffer pool), and the port's LightTail
 buffers (the decode back-end's DecodeTables, with K3's bf16 class cores,
 among them) must equal constants.from_jax_arrays over the JAX builders'
 arrays, for every MP3 sample-rate row.
@@ -17,21 +18,22 @@ pytest.importorskip("jax")
 import ml_dtypes  # noqa: E402
 
 from mp3rgain_tpu.decode import entropy_kernel as jek  # noqa: E402
-from mp3rgain_tpu.decode import frontend as fe  # noqa: E402
+from mp3rgain_tpu.decode import frontend as jfe  # noqa: E402
 from mp3rgain_tpu.decode import hybrid_kernel as jhk  # noqa: E402
 from mp3rgain_tpu.decode import synthesis as jsyn  # noqa: E402
-from mp3rgain_tpu.decode.format_tables import SR_ROW  # noqa: E402
-from mp3rgain_tpu.ops import coeffs  # noqa: E402
 from mp3rgain_tpu.ops import iir as jiir  # noqa: E402
 from mp3rgain_tpu.parallel import runner as jpr  # noqa: E402
-from mp3rgain_tpu.testing import fixtures  # noqa: E402
-from mp3rgain_tpu.utils import bufpool  # noqa: E402
-from mp3rgain_tpu_torch import constants  # noqa: E402
+from mp3rgain_tpu.utils import bufpool as jbufpool  # noqa: E402
+from mp3rgain_tpu_torch import constants, native  # noqa: E402
 from mp3rgain_tpu_torch.decode import entropy_kernel as ek  # noqa: E402
+from mp3rgain_tpu_torch.decode import frontend as fe  # noqa: E402
 from mp3rgain_tpu_torch.decode import hybrid_kernel as hk  # noqa: E402
 from mp3rgain_tpu_torch.decode import synthesis as syn  # noqa: E402
-from mp3rgain_tpu_torch.ops import iir  # noqa: E402
+from mp3rgain_tpu_torch.decode.format_tables import SR_ROW  # noqa: E402
+from mp3rgain_tpu_torch.ops import coeffs, iir  # noqa: E402
 from mp3rgain_tpu_torch.parallel import runner as pr  # noqa: E402
+from mp3rgain_tpu_torch.testing import make_smoke_data as smoke  # noqa: E402
+from mp3rgain_tpu_torch.utils import bufpool  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -87,13 +89,18 @@ def test_copied_constants_and_builders():
     _assert_same(syn._synth_kernel(), jsyn._synth_kernel(), "synth_kernel")
     _assert_same(syn._tail_matrices(), jsyn._tail_matrices(), "tail")
     _assert_same(syn._tail_matrices_fused(), jsyn._tail_matrices_fused(), "tailf")
-    # The port declares the native packer's ctypes signature itself.
+    # The port's native.py declares the packer's ctypes signature itself.
     class Fn:
         pass
 
-    mine, theirs = type("Lib", (), {})(), type("Lib", (), {})()
-    mine.mg_entropy_pack4, theirs.mg_entropy_pack4 = Fn(), Fn()
-    ek._declare_pack(mine)
+    class Lib:
+        def __getattr__(self, name):
+            fn = Fn()
+            setattr(self, name, fn)
+            return fn
+
+    mine, theirs = Lib(), Lib()
+    native._declare(mine)
     jek._declare_pack(theirs)
     assert mine.mg_entropy_pack4.argtypes == theirs.mg_entropy_pack4.argtypes
     assert mine.mg_entropy_pack4.restype is theirs.mg_entropy_pack4.restype
@@ -194,16 +201,16 @@ def test_luts_from_packed_equal_plain_tables():
 
 def _tracks():
     out = []
-    for sr, ch, mode, br, seed in ((44100, 2, fixtures.MODE_JOINT, 128, 1),
-                                   (44100, 2, fixtures.MODE_JOINT, 192, 2),
-                                   (44100, 2, fixtures.MODE_STEREO, 96, 3)):
+    for sr, ch, mode, br, seed in ((44100, 2, smoke.MODE_JOINT, 128, 1),
+                                   (44100, 2, smoke.MODE_JOINT, 192, 2),
+                                   (44100, 2, smoke.MODE_STEREO, 96, 3)):
         rng = np.random.default_rng(seed)
         n = int(sr * 0.4)
         wave = 0.3 * np.sin(2 * np.pi * (300 + 70 * seed) * np.arange(n) / sr)
         wave += 0.1 * rng.standard_normal(n)
         pcm = np.clip(wave * 32767, -32768, 32767).astype(np.int16)
         pcm = np.stack([pcm, np.roll(pcm, 5)], axis=1)
-        out.append(fixtures.encode_mp3(pcm, sr, bitrate=br, mode=mode))
+        out.append(smoke.encode_mp3(pcm, sr, bitrate=br, mode=mode))
     return out
 
 
@@ -211,15 +218,17 @@ def _tracks():
 def zeroed_pool(monkeypatch):
     """Pooled buffers come back with stale contents in the regions the
     packers leave unwritten (never read by a decode); hand out zeroed
-    ones so whole buffers compare."""
-    monkeypatch.setattr(bufpool, "take", lambda shape, dtype: np.zeros(shape, dtype))
+    ones so whole buffers compare. Each package has its own pool."""
+    for pool in (bufpool, jbufpool):
+        monkeypatch.setattr(pool, "take", lambda shape, dtype: np.zeros(shape, dtype))
 
 
 def test_prepare_batch_bit_identical(zeroed_pool):
     ups = [fe.unpack_data_light(d) for d in _tracks()]
+    jups = [jfe.unpack_data_light(d) for d in _tracks()]
     for kw in ({}, {"quantize_nb": True}, {"force_nb": 3, "force_g_pad": 512}):
         a = ek.prepare_batch([u.md for u in ups], [u.meta for u in ups], **kw)
-        b = jek.prepare_batch([u.md for u in ups], [u.meta for u in ups], **kw)
+        b = jek.prepare_batch([u.md for u in jups], [u.meta for u in jups], **kw)
         for f in ("scalars", "buf", "meta", "inv"):
             _assert_same(getattr(a, f), getattr(b, f), f)
         assert (a.nb, a.n, a.w8_cap, a.g_pad) == (b.nb, b.n, b.w8_cap, b.g_pad)
@@ -230,10 +239,11 @@ def test_prepare_batch_bit_identical(zeroed_pool):
 
 @pytest.mark.parametrize("packed", [True, False])
 def test_prepare_batch_arrays_light_bit_identical(packed, zeroed_pool):
-    unpack = fe.unpack_data_light_packed if packed else fe.unpack_data_light
-    ups = [unpack(d) for d in _tracks()]
-    pa, ra, ga = pr.prepare_batch_arrays_light(ups, 2)
-    pb, rb, gb = jpr.prepare_batch_arrays_light(ups, 2)
+    name = "unpack_data_light_packed" if packed else "unpack_data_light"
+    pa, ra, ga = pr.prepare_batch_arrays_light(
+        [getattr(fe, name)(d) for d in _tracks()], 2)
+    pb, rb, gb = jpr.prepare_batch_arrays_light(
+        [getattr(jfe, name)(d) for d in _tracks()], 2)
     assert ga == gb
     for f in ("scalars", "buf", "meta", "inv"):
         _assert_same(getattr(pa, f), getattr(pb, f), f)

@@ -4,8 +4,9 @@ version, and both routes on the card against the CPU.
 Every test carries the `cuda` marker and skips where
 torch.cuda.is_available() is false. The file needs neither jax nor an MP3
 encoder, so it runs on a GPU machine that has neither: its inputs are
-crafted streams (mp3rgain_tpu.testing.craft) and the committed clips of
-mp3rgain_tpu_torch/testing/data. Run there with
+crafted streams (mp3rgain_tpu_torch.testing.craft) and the committed
+clips of mp3rgain_tpu_torch/testing/data, and it imports nothing of the
+JAX package. Run there with
 `python -m pytest tests/test_torch_cuda.py -q -m cuda`.
 """
 
@@ -15,14 +16,14 @@ import numpy as np
 import pytest
 import torch
 
-from mp3rgain_tpu.decode import frontend as fe
-from mp3rgain_tpu.testing import craft
 from mp3rgain_tpu_torch import _build
 from mp3rgain_tpu_torch.decode import class_core as cc
 from mp3rgain_tpu_torch.decode import entropy_kernel as ek
+from mp3rgain_tpu_torch.decode import frontend as fe
 from mp3rgain_tpu_torch.decode import hybrid_kernel as hk
 from mp3rgain_tpu_torch.decode import synthesis as syn
 from mp3rgain_tpu_torch.parallel import runner as pr
+from mp3rgain_tpu_torch.testing import craft
 from mp3rgain_tpu_torch.testing import make_smoke_data as smoke
 
 pytestmark = pytest.mark.cuda
@@ -130,12 +131,15 @@ def test_failed_kernel_library_raises(dev, monkeypatch):
     assert ek.COUNT.plain == before
 
 
-@pytest.mark.parametrize("ncore,npass,select", [(1, 1, False), (2, 2, False),
-                                                (3, 3, False), (3, 3, True),
-                                                (3, 2, True)])
-def test_k3_kernel_matches_plain(ncore, npass, select, dev):
+# rows: 1000 is 7 full row tiles of 128 and a partial one of 104; 300 is
+# 3 tiles (18 output tiles, fewer than the card's SMs); 40 is one partial
+# tile.
+@pytest.mark.parametrize("ncore,npass,select,rows", [
+    (1, 1, False, 1000), (2, 2, False, 1000), (3, 3, False, 1000), (3, 3, True, 1000),
+    (3, 2, True, 1000), (3, 1, True, 1000), (1, 3, True, 1000), (1, 3, False, 1000),
+    (3, 3, True, 300), (2, 1, False, 300), (3, 3, False, 40)])
+def test_k3_kernel_matches_plain(ncore, npass, select, rows, dev):
     rng = np.random.default_rng(ncore * 10 + npass)
-    rows = 1000  # ragged: 7 full tiles of 128 rows and a partial one
     x = torch.from_numpy(rng.standard_normal((2, rows, 576)).astype(np.float32)).to(dev)
     cores = torch.from_numpy(rng.standard_normal((ncore, 576, 1152)).astype(np.float32))
     chi, clo = (t.to(dev) for t in cc.split_bf16(cores))
@@ -143,7 +147,7 @@ def test_k3_kernel_matches_plain(ncore, npass, select, dev):
     if select:
         rc = rng.integers(0, ncore, (2, rows)).astype(np.int32)
         rc[0, :256] = 0  # tiles of one class skip the other cores
-        rc[1, 300:310] = -1  # rows of no class come out zero
+        rc[1, rows // 3 : rows // 3 + 10] = -1  # rows of no class come out zero
         row_core = torch.from_numpy(rc).to(dev)
     k0, p0 = cc.COUNT.kernel, cc.COUNT.plain
     got = cc.class_core_gemm(x, chi, clo, npass=npass, row_core=row_core)
@@ -153,7 +157,20 @@ def test_k3_kernel_matches_plain(ncore, npass, select, dev):
     scale = want.abs().max().item()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
     if select:
-        assert not got[1, 300:310].any()
+        assert not got[1, rows // 3 : rows // 3 + 10].any()
+    # No split-K and no atomics: a second call gives the same bits.
+    again = cc.class_core_gemm(x, chi, clo, npass=npass, row_core=row_core)
+    assert torch.equal(got, again)
+
+
+def test_k3_rejects_misaligned_input(dev):
+    """TMA takes 16-byte aligned tensors; the wrapper raises before a launch."""
+    x = torch.zeros(4 * 576 + 1, device=dev)[1:].view(1, 4, 576)
+    chi = torch.zeros((1, 576, 1152), dtype=torch.bfloat16, device=dev)
+    k0 = cc.COUNT.kernel
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cc.class_core_gemm(x, chi, chi)
+    assert cc.COUNT.kernel == k0
 
 
 def test_k3_failed_library_raises(dev, monkeypatch):

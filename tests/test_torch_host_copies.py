@@ -1,0 +1,339 @@
+"""Torch port: its copies of the JAX package's host code equal the originals.
+
+The port imports nothing of mp3rgain_tpu, so it carries copies of the host
+code it needs: the native C++ front-end (_native/, built by native.py),
+the MP3 front-end (decode/frontend.py), the table builders and filter
+coefficients, the buffer pool, the result types, the crafted streams and
+the libmp3lame encoder. Every copy is held here to its original: the
+Python copies by their code (docstrings and comments aside) and by their
+outputs, the C++ copies by their code lines and by the front-end's
+outputs, array for array, on the committed clips and the crafted streams.
+"""
+
+import ast
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+pytest.importorskip("jax")
+
+from mp3rgain_tpu import bitstream  # noqa: E402
+from mp3rgain_tpu import replaygain as jrg  # noqa: E402
+from mp3rgain_tpu.decode import entropy_tables as jet  # noqa: E402
+from mp3rgain_tpu.decode import format_tables as jft  # noqa: E402
+from mp3rgain_tpu.decode import frontend as jfe  # noqa: E402
+from mp3rgain_tpu.decode import synth_window as jsw  # noqa: E402
+from mp3rgain_tpu.decode import tables as jtables  # noqa: E402
+from mp3rgain_tpu.ops import coeffs as jcoeffs  # noqa: E402
+from mp3rgain_tpu.testing import craft as jcraft  # noqa: E402
+from mp3rgain_tpu.testing import fixtures  # noqa: E402
+from mp3rgain_tpu_torch import native, replaygain  # noqa: E402
+from mp3rgain_tpu_torch.decode import entropy_tables, format_tables, frontend  # noqa: E402
+from mp3rgain_tpu_torch.decode import synth_window, tables  # noqa: E402
+from mp3rgain_tpu_torch.ops import coeffs  # noqa: E402
+from mp3rgain_tpu_torch.testing import craft  # noqa: E402
+from mp3rgain_tpu_torch.testing import make_smoke_data as smoke  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_PKG = os.path.join(ROOT, "mp3rgain_tpu")
+PORT_PKG = os.path.join(ROOT, "mp3rgain_tpu_torch")
+
+
+def _same(a, b, what="value"):
+    """Equal in type, dtype, shape and every bit, recursively."""
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        assert type(a).__name__ == type(b).__name__, what
+        for f in dataclasses.fields(a):
+            _same(getattr(a, f.name), getattr(b, f.name), f"{what}.{f.name}")
+        return
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and sorted(a) == sorted(b), what
+        for k in a:
+            _same(a[k], b[k], f"{what}[{k!r}]")
+        return
+    if isinstance(a, (list, tuple)):
+        assert type(a) is type(b) and len(a) == len(b), what
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{what}[{i}]")
+        return
+    if isinstance(a, np.ndarray):
+        assert isinstance(b, np.ndarray), what
+        assert a.dtype == b.dtype and a.shape == b.shape, (what, a.dtype, b.dtype)
+        assert np.array_equal(a, b, equal_nan=a.dtype.kind == "f"), what
+        return
+    assert type(a) is type(b) and (a is None or a == b), what
+
+
+# --- Python copies: the same code, docstrings and comments aside -------------
+
+PY_COPIES = [
+    "decode/tables.py",
+    "decode/format_tables.py",
+    "decode/entropy_tables.py",
+    "decode/synth_window.py",
+    "ops/coeffs.py",
+    "utils/bufpool.py",
+    "testing/craft.py",
+]
+
+
+def _code(path: str) -> str:
+    """The module's AST without docstrings (comments never reach it)."""
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("rel", PY_COPIES)
+def test_python_copy_has_the_original_code(rel):
+    assert _code(os.path.join(PORT_PKG, rel)) == _code(os.path.join(JAX_PKG, rel))
+
+
+# --- C++ copies: the same code lines, comments aside --------------------------
+
+def _code_lines(path: str) -> list[str]:
+    out = []
+    for ln in open(path).read().splitlines():
+        s = ln.strip()
+        if s and not s.startswith("//"):
+            out.append(ln.rstrip())
+    return out
+
+
+@pytest.mark.parametrize("name", ["mp3dec.cpp", "mp4box.cpp", "huffman_tables.h"])
+def test_native_copy_has_the_original_code(name):
+    mine = _code_lines(os.path.join(PORT_PKG, "_native", name))
+    theirs = _code_lines(os.path.join(JAX_PKG, "_native", name))
+    assert mine == theirs
+
+
+def test_native_header_declares_the_sources_entry_points():
+    """The port's native.h declares exactly the C entry points that the
+    original mp3dec.cpp and mp4box.cpp define, with their signatures, and
+    every one the port binds."""
+    sig = r"\w+\s*\**\s*mg_\w+\s*\([^)]*\)"
+
+    def found(text, end):
+        return {" ".join(d.split())[: -len(end)].strip()
+                for d in re.findall(sig + r"\s*" + re.escape(end), text)}
+
+    mine = found(" ".join(_code_lines(os.path.join(PORT_PKG, "_native", "native.h"))), ";")
+    defined = set()
+    for name in ("mp3dec.cpp", "mp4box.cpp"):
+        defined |= found(" ".join(_code_lines(os.path.join(JAX_PKG, "_native", name))), "{")
+    assert mine == defined
+    bound = {"mg_mp3_unpack", "mg_mp3_unpack_light", "mg_mp3_unpack_light2",
+             "mg_mp3_count_gch", "mg_entropy_pack4", "mg_sort_est_bits",
+             "mg_pack_light_track", "mg_mp4_is_mp4"}
+    assert all(any(f" {n}(" in d for d in mine) for n in bound)
+
+
+class _Fn:
+    pass
+
+
+class _Lib:
+    """Records the ctypes declarations made on it."""
+
+    def __getattr__(self, name):
+        fn = _Fn()
+        setattr(self, name, fn)
+        return fn
+
+
+@pytest.mark.parametrize("name", ["mg_mp3_unpack", "mg_mp3_unpack_light",
+                                  "mg_mp3_count_gch", "mg_mp3_unpack_light2"])
+def test_native_signatures_equal_the_front_end_originals(name):
+    mine = _Lib()
+    native._declare(mine)
+    theirs = getattr(jfe._lib, name)
+    assert getattr(mine, name).argtypes == theirs.argtypes
+    assert getattr(mine, name).restype is theirs.restype
+
+
+def test_native_build_is_atomic_under_a_race(tmp_path):
+    """Processes that race for the first build all load a whole library;
+    one compiler output is left, and no temporary file."""
+    prog = (
+        "import ctypes, sys\n"
+        "import mp3rgain_tpu_torch.native as n\n"
+        f"n.BUILD_DIR = {str(tmp_path)!r}\n"
+        "n.SO_PATH = n.os.path.join(n.BUILD_DIR, 'libhost.so')\n"
+        "lib = ctypes.CDLL(n.build())\n"
+        "n._declare(lib)\n"
+        "data = open(sys.argv[1], 'rb').read()\n"
+        "print(lib.mg_mp3_count_gch(n._inbuf(data), len(data)))\n"
+    )
+    clip = os.path.join(smoke.DATA_DIR, smoke.TRANSIENT_TRACK)
+    procs = [subprocess.Popen([sys.executable, "-c", prog, clip], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(3)]
+    outs = [p.communicate(timeout=600) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0, 0], [e for _, e in outs]
+    want = jfe.unpack_data(open(clip, "rb").read()).n
+    assert [int(o) for o, _ in outs] == [want] * 3
+    assert sorted(os.listdir(tmp_path)) == ["libhost.so", "libhost.so.lock"]
+
+
+# --- the front-end's outputs, array for array ---------------------------------
+
+def _clip(name: str) -> bytes:
+    with open(os.path.join(smoke.DATA_DIR, name), "rb") as f:
+        return f.read()
+
+
+STREAMS = {
+    "bench": lambda: _clip(smoke.BENCH_TRACK),
+    "mono_22k": lambda: _clip(smoke.MONO_TRACK),
+    "transient": lambda: _clip(smoke.TRANSIENT_TRACK),
+    "truncated": lambda: _clip(smoke.TRANSIENT_TRACK)[:20000],
+    "craft_intensity": jcraft.craft_intensity_stream,
+    "craft_mixed_block": jcraft.craft_mixed_block_stream,
+    "craft_count1b": jcraft.craft_count1b_stream,
+    "craft_scalefactor": lambda: jcraft.craft_scalefactor_stream(
+        scf=[3, 2, 1, 4, 5, 6, 7, 0, 1, 2, 3] + [1, 2, 3, 0, 1, 2, 3, 0, 1, 2],
+        preflag=1, scfsi=0b1010),
+    "craft_lsf_intensity": jcraft.craft_lsf_intensity_stream,
+}
+
+
+def _md_written(meta: np.ndarray) -> np.ndarray:
+    """The md bytes the native walk writes: a row with a Huffman window
+    holds ceil((p0 + p23) / 8) + 8 window bytes and 8 zeros (mp3dec.cpp,
+    the light walk); the rest of the row is never written nor read."""
+    p0 = meta[:, frontend.LM_P0].astype(np.int64)
+    p23 = meta[:, frontend.LM_P23].astype(np.int64)
+    nbytes = np.minimum((p0 + p23 + 7) // 8 + 16, frontend.MD_STRIDE)
+    nbytes[p0 + p23 == 0] = 0
+    return np.arange(frontend.MD_STRIDE)[None, :] < nbytes[:, None]
+
+
+@pytest.mark.parametrize("name", sorted(STREAMS))
+def test_front_end_outputs_equal_the_original(name):
+    data = STREAMS[name]()
+    for fn in ("unpack_data", "unpack_data_light", "unpack_data_light_packed"):
+        mine = getattr(frontend, fn)(data)
+        theirs = getattr(jfe, fn)(data)
+        assert mine.n > 0, (name, fn)
+        if fn != "unpack_data":
+            _same(mine.meta, theirs.meta, f"{name}.{fn}.meta")
+            written = _md_written(mine.meta)
+            assert written.any()
+            _same(mine.md[written], theirs.md[written], f"{name}.{fn}.md")
+            mine.md = theirs.md = None
+        _same(mine, theirs, f"{name}.{fn}")
+
+
+def test_front_end_helpers_and_constants_equal_the_original():
+    names = [k for k, v in vars(jfe).items()
+             if k.isupper() and isinstance(v, (int, float, tuple, list))]
+    assert len(names) > 20
+    for k in names:
+        _same(getattr(frontend, k), getattr(jfe, k), k)
+    u = jfe.unpack_data(_clip(smoke.TRANSIENT_TRACK))
+    _same(frontend.pack_info_light(u.info), jfe.pack_info_light(u.info), "info")
+    _same(frontend.pack_scf_rows(u.scf), jfe.pack_scf_rows(u.scf), "scf")
+
+
+# --- the builders' outputs ------------------------------------------------------
+
+def test_table_builders_bit_identical():
+    _same(tables.build_tables(), jtables.build_tables(), "build_tables")
+    for sr_row in range(9):
+        _same(tables.row_tables(sr_row), jtables.row_tables(sr_row), f"row {sr_row}")
+    _same(tables.CLASS_OF_KIND, jtables.CLASS_OF_KIND, "CLASS_OF_KIND")
+    for bt in range(4):
+        _same(tables._window_long(bt), jtables._window_long(bt), f"window {bt}")
+
+
+def test_format_tables_and_synth_window_bit_identical():
+    for k in ("BAND_SIZE_LONG", "BAND_SIZE_SHORT", "PRETAB", "SR_ROW"):
+        _same(getattr(format_tables, k), getattr(jft, k), k)
+    _same(synth_window.SYNTH_WINDOW_D, jsw.SYNTH_WINDOW_D, "SYNTH_WINDOW_D")
+
+
+def test_entropy_luts_bit_identical():
+    """The copy parses the port's own huffman_tables.h."""
+    assert os.path.samefile(os.path.dirname(entropy_tables._header_path()),
+                            os.path.join(PORT_PKG, "_native"))
+    _same(entropy_tables.build_luts(), jet.build_luts(), "build_luts")
+
+
+def test_filter_coefficients_bit_identical():
+    for k in ("YULE_A", "YULE_B", "BUTTER_A", "BUTTER_B", "SUPPORTED_RATES",
+              "DENORMAL_PREVENTION"):
+        _same(getattr(coeffs, k), getattr(jcoeffs, k), k)
+    assert coeffs.DEGENERATE_RATES == jcoeffs.DEGENERATE_RATES
+    for rate in coeffs.SUPPORTED_RATES:
+        _same(coeffs.filter_plan(rate), jcoeffs.filter_plan(rate), f"plan {rate}")
+
+
+def test_result_types_equal_the_original():
+    assert replaygain.PINK_REF == jrg.PINK_REF
+    for cls in ("ReplayGainResult", "AlbumGainResult", "PeakAmplitudeResult"):
+        mine = [(f.name, f.type) for f in dataclasses.fields(getattr(replaygain, cls))]
+        theirs = [(f.name, f.type) for f in dataclasses.fields(getattr(jrg, cls))]
+        assert mine == theirs, cls
+    for db in np.linspace(-40.0, 40.0, 321).tolist() + [0.75, -0.75, 2.25, -2.25]:
+        assert replaygain.db_to_steps(db) == bitstream.db_to_steps(db), db
+    r = replaygain.ReplayGainResult(90.0, -4.5, 0.5, 44100, "mp3")
+    assert r.gain_steps() == jrg.ReplayGainResult(90.0, -4.5, 0.5, 44100, "mp3").gain_steps()
+
+
+# --- the crafted streams and the encoder, byte for byte -------------------------
+
+CRAFTED = [
+    ("craft_intensity_stream", {}),
+    ("craft_intensity_stream", {"mode_extension": 3, "ch1_bands": [0, 1, 2]}),
+    ("craft_mixed_block_stream", {}),
+    ("craft_mixed_block_stream", {"n_frames": 7, "subblock_gain": (2, 0, 1)}),
+    ("craft_count1b_stream", {}),
+    ("craft_scalefactor_stream", {"scf": [1] * 11 + [2] * 10, "scalefac_scale": 1}),
+    ("craft_lsf_intensity_stream", {}),
+    ("craft_lsf_intensity_stream", {"intensity_scale": 1}),
+]
+
+
+@pytest.mark.parametrize("fn,kw", CRAFTED)
+def test_crafted_streams_byte_identical(fn, kw):
+    mine = getattr(craft, fn)(**kw)
+    assert mine == getattr(jcraft, fn)(**kw) and len(mine) > 0
+
+
+def test_crc_protection_byte_identical():
+    frame = craft.craft_joint_stereo_frame(1, [0] * 10, [11, 12])
+    assert frame == jcraft.craft_joint_stereo_frame(1, [0] * 10, [11, 12])
+    assert craft.add_crc_protection(frame, 32) == jcraft.add_crc_protection(frame, 32)
+
+
+def _pcm(channels: int, sr: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    n = int(sr * 0.3)
+    wave = 0.3 * np.sin(2 * np.pi * 440 * np.arange(n) / sr) + 0.05 * rng.standard_normal(n)
+    pcm = np.clip(wave * 32767, -32768, 32767).astype(np.int16)
+    return pcm if channels == 1 else np.stack([pcm, np.roll(pcm, 7)], axis=1)
+
+
+@pytest.mark.parametrize("channels,sr,kw", [
+    (2, 44100, {"bitrate": 192, "mode": smoke.MODE_JOINT}),
+    (2, 44100, {"bitrate": 128, "mode": smoke.MODE_STEREO}),
+    (1, 22050, {"bitrate": 48, "mode": smoke.MODE_MONO}),
+    (2, 48000, {"vbr": True, "vbr_quality": 2}),
+    (2, 32000, {"bitrate": 96, "write_vbr_tag": False}),
+])
+def test_encoder_copy_byte_identical(channels, sr, kw):
+    assert (smoke.MODE_STEREO, smoke.MODE_JOINT, smoke.MODE_MONO) == (
+        fixtures.MODE_STEREO, fixtures.MODE_JOINT, fixtures.MODE_MONO)
+    pcm = _pcm(channels, sr, sr + channels)
+    mine = smoke.encode_mp3(pcm, sr, **kw)
+    assert mine == fixtures.encode_mp3(pcm, sr, **kw) and len(mine) > 1000
