@@ -4,27 +4,30 @@
     python3 chip_smoke.py
 
 Builds the port's host library (g++, mp3rgain_tpu_torch/_native) and the
-three hand-written kernels from the sources in this checkout (the CUDA
-Huffman decode K1 and the CUDA split-bf16 class-core GEMM K3 with nvcc,
-one process per source, all started together with the g++ build, and the
-Triton requantize + stereo pass K2), holds each against its plain PyTorch
-version on the card and times it beside its bound (and K3 beside one
-cuBLAS call computing the same product, which the port never calls), then
-runs the port's two routes over 64 copies of a 60 s, 44.1 kHz
-joint-stereo 192 kbps track, the JAX package's bench batch: the light
-main path (Runner.analyze_unpacked_light, K1 + K2) and the host-decoded
-route (Runner.analyze_unpacked, K3), each with the launch counts set to 0
-just before it and read just after; then the unfused light tail against
-the host-decoded route (exact), decode_file and the analysis entry points
-on committed clips. Every check raises on failure; there is no CPU
-branch. Output, one phase per line:
+three hand-written CUDA C++ kernels from the sources in this checkout with
+nvcc, one process per source, all started together with the g++ build:
+the Huffman decode K1 (csrc/entropy_decode.cu, which writes each spectrum
+straight into the row its consumer reads), the requantize + stereo pass
+K2 (csrc/requant_stereo.cu) and the split-bf16 class-core GEMM K3
+(csrc/class_core_gemm.cu). Holds each against its plain PyTorch version
+on the card and times it beside its bound (and K3 beside one cuBLAS call
+computing the same product, which the port never calls), then runs the
+port's two routes over 64 copies of a 60 s, 44.1 kHz joint-stereo
+192 kbps track, the JAX package's bench batch: the light main path
+(Runner.analyze_unpacked_light, K1 + K2) and the host-decoded route
+(Runner.analyze_unpacked, K3), each with the launch counts set to 0 just
+before it and read just after; the light device phase split by stage
+(CUDA events, median of 3); then the unfused light tail against the
+host-decoded route (exact), decode_file and the analysis entry points on
+committed clips. Every check raises on failure; there is no CPU branch.
+Output, one phase per line:
 
-  device / nvidia-smi name and power limit / build seconds and K1/K3
+  device / nvidia-smi name and power limit / build seconds and K1/K2/K3
   registers, shared memory and spills / K1, K2 and K3 agreement, times
-  and bounds / light slice
-  launch counts, CPU agreement / heavy slice launch counts, CPU and light
-  agreement, light unfused == heavy / decode_file / entry-point gains /
-  times / a JSON line of per-kernel results /
+  and bounds / light slice launch counts, CPU agreement / light stage
+  split / heavy slice launch counts, CPU and light agreement, light
+  unfused == heavy / decode_file / entry-point gains / times / a JSON
+  line of per-kernel results /
   last line {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero
@@ -121,25 +124,21 @@ def main() -> None:
     entry = None
     for ln in _build.build_log.splitlines():
         if "Compiling entry function" in ln:
-            entry = ("K1" if "entropy_decode_kernel" in ln else
-                     "K3" if "class_core_gemm_wgmma" in ln else ln)
+            # K1's two small row-fill passes (mark_rows, zero_rows) are not
+            # listed; K2 has one entry per channel count.
+            entry = ("K1" if "entropy_decode_rows_kernel" in ln else
+                     "K2" if "requant_stereo_kernel" in ln else
+                     "K3" if "class_core_gemm_wgmma" in ln else None)
         elif entry and ("registers" in ln or "spill" in ln):
             line = " ".join(ln.replace("ptxas info    :", "").split())
             if line not in resources.setdefault(entry, []):
                 resources[entry].append(line)
-    check(set(resources) == {"K1", "K3"}, f"ptxas reported K1 and K3: {sorted(resources)}")
+    check(set(resources) == {"K1", "K2", "K3"},
+          f"ptxas reported K1, K2 and K3: {sorted(resources)}")
     resources["K3"].append(f"{k3_smem} bytes dynamic smem")
     regs = [f"{k}: {', '.join(v)}" for k, v in sorted(resources.items())]
-    t0 = time.perf_counter()
-    tables0 = hk.HybridTables(0).to(dev)
-    z16 = torch.zeros((2, 1, 576), dtype=torch.int16, device=dev)
-    hk.fused_requant_stereo(z16, torch.zeros((2, 1, 64), dtype=torch.int8, device=dev),
-                            torch.zeros((2, 1, hk.GM_N), dtype=torch.int32, device=dev),
-                            tables0)
-    torch.cuda.synchronize()
-    triton_s = time.perf_counter() - t0
-    print(f"build: host library g++ {host['s']:.2f} s; K1 + K3 nvcc {nvcc_s:.2f} s "
-          f"({'; '.join(regs)}); K2 triton jit {triton_s:.2f} s", flush=True)
+    print(f"build: host library g++ {host['s']:.2f} s; K1 + K2 + K3 nvcc {nvcc_s:.2f} s "
+          f"({'; '.join(regs)})", flush=True)
 
     # --- 3. inputs -----------------------------------------------------------
     def read(fname):
@@ -177,18 +176,19 @@ def main() -> None:
         return [pr._to_device(a, dev) for a in arrs]
 
     # --- 4. K1: CUDA kernel against the plain version -------------------------
-    def k1_compare(args):
-        spec_b, mout = ek.decode_blocks(*args, luts)
-        ref_s, ref_m = ek.decode_blocks_reference(*args, luts)
+    def k1_compare(args, dest, n_rows):
+        got = ek.decode_rows(*args, luts, dest, n_rows)
+        want = ek.decode_rows_reference(*args, luts, dest, n_rows)
         torch.cuda.synchronize()
-        check(torch.equal(spec_b, ref_s) and torch.equal(mout, ref_m),
-              "K1 spec_b/mout equal the plain version")
-        err = max((spec_b.int() - ref_s.int()).abs().max().item(),
-                  (mout - ref_m).abs().max().item())
-        return spec_b, mout, err
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              "K1 spec_rows/big_end/count1_end equal the plain version")
+        err = max((g.int() - w.int()).abs().max().item() if g.numel() else 0
+                  for g, w in zip(got, want))
+        return got, err
 
-    def host_equal(spec, big_end, c1end, host, n_tracks):
-        """Unsorted spectra of n_tracks copies equal the host decoder."""
+    def host_equal(rows, host, n_tracks):
+        """Rows in input order of n_tracks copies equal the host decoder."""
+        spec, big_end, c1end = rows
         n = host.n
         valid = torch.from_numpy(host.info[:, fe.VALID] == 1).to(dev)
         want = torch.from_numpy(host.spectrum).to(dev)
@@ -207,36 +207,40 @@ def main() -> None:
         check(light.n > 0, f"{label} has granules")
         p = ek.prepare_batch(light.md, light.meta)
         args = to_dev((p.scalars, p.buf, p.meta, p.inv))
-        spec_b, mout, err = k1_compare(args[:3])
+        rows, err = k1_compare(args[:3], ek.input_order_dest(args[3], p.n), p.n)
         k1_err = max(k1_err, err)
-        spec, big_end, c1end, _ = ek.unsort_blocks(spec_b, mout, args[3], nb=p.nb)
-        host_equal(spec, big_end, c1end, fe.unpack_data(data), 1)
+        host_equal(rows, fe.unpack_data(data), 1)
 
     prep, rest, g_max = pr.prepare_batch_arrays_light([u] * BATCH_TRACKS, 2)
     batch = to_dev((prep.scalars, prep.buf, prep.meta, prep.inv) + tuple(rest))
     nb = prep.nb
-    spec_b, mout, err = k1_compare(batch[:3])
+    rows, err = k1_compare(batch[:3], ek.input_order_dest(batch[3], prep.n), prep.n)
+    k1_err = max(k1_err, err)
+    host_equal(rows, full, BATCH_TRACKS)
+    del rows
+    # The main path's map: K2's channel-major rows, with padding slots.
+    dest, n_rows = pr.dest_rows(batch[3], batch[4], g_max=g_max, n_channels=2,
+                                channel_major=True)
+    rows_cm, err = k1_compare(batch[:3], dest, n_rows)
     k1_err = max(k1_err, err)
     # K1's integer decode steps have no rate in the published table: its
-    # bound counts bytes only (inputs, tables, outputs).
-    k1_bound = bound_of(nbytes(*batch[:3], spec_b, mout) + nbytes(*luts.buffers()))
-    spec, big_end, c1end, _ = ek.unsort_blocks(spec_b, mout, batch[3], nb=nb)
-    host_equal(spec, big_end, c1end, full, BATCH_TRACKS)
-    del spec, big_end, c1end
-    k1_ms = cuda_ms(lambda: ek.decode_blocks(*batch[:3], luts), 10)
-    k1_plain_ms = cuda_ms(lambda: ek.decode_blocks_reference(*batch[:3], luts), 2)
-    print(f"K1 entropy_decode (CUDA C++): exact against the plain version on "
+    # bound counts bytes only (inputs with the row map, tables, outputs).
+    k1_bound = bound_of(nbytes(*batch[:3], dest, *rows_cm) + nbytes(*luts.buffers()))
+    k1_ms = cuda_ms(lambda: ek.decode_rows(*batch[:3], luts, dest, n_rows), 10)
+    k1_plain_ms = cuda_ms(
+        lambda: ek.decode_rows_reference(*batch[:3], luts, dest, n_rows), 2)
+    print(f"K1 entropy_decode_rows (CUDA C++): exact against the plain version on "
           f"{len(streams)} streams and the {BATCH_TRACKS}-track batch "
-          f"(nb={nb}, {nb * ek.LANES} lanes), unsorted spectra equal the host "
-          f"decoder; kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.1f} ms, bound "
-          f"{k1_bound[0]:.3f} ms ({k1_bound[1]}) {card}",
-          flush=True)
+          f"(nb={nb}, {nb * ek.LANES} lanes; input-order rows and {n_rows} "
+          f"channel-major rows), input-order rows equal the host decoder; kernel "
+          f"{k1_ms:.3f} ms, plain {k1_plain_ms:.1f} ms, bound {k1_bound[0]:.3f} ms "
+          f"({k1_bound[1]}; {k1_bound[0] / k1_ms:.1%} of it) {card}", flush=True)
 
-    # --- 5. K2: Triton kernel against the plain version -----------------------
+    # --- 5. K2: CUDA kernel against the plain version -------------------------
     tail = pr.LightTail(44100, 2).to(dev)
-    cm = pr.channel_major_inputs(spec_b, mout, *batch[3:11], nb=nb, g_max=g_max,
+    cm = pr.channel_major_inputs(*rows_cm, *batch[4:11], nb=nb, g_max=g_max,
                                  n_channels=2)
-    del spec_b, mout
+    del rows_cm
     xr = hk.fused_requant_stereo(*cm, tail.hybrid)
     ref = hk.fused_requant_stereo_reference(*cm, tail.hybrid)
     torch.cuda.synchronize()
@@ -252,12 +256,13 @@ def main() -> None:
     rows = cm[0].shape[1]
     gbytes = (nbytes(*cm) + 2 * rows * 576 * 4) / 1e9  # inputs + f32 output
     k2_bound = bound_of(gbytes * 1e9)
-    print(f"K2 requant_stereo (Triton): rows {rows} x 2 channels, max_abs_err "
+    print(f"K2 requant_stereo (CUDA C++): rows {rows} x 2 channels, max_abs_err "
           f"{k2_err:.3e} of max|ref| {scale:.1f} (rtol {K2_RTOL}, atol "
           f"{K2_ATOL_REL}*max|ref|); kernel {k2_ms:.3f} ms "
           f"({gbytes / (k2_ms / 1e3):.0f} GB/s), plain {k2_plain_ms:.3f} ms, bound "
-          f"{k2_bound[0]:.3f} ms ({k2_bound[1]}) {card}", flush=True)
-    del cm, batch
+          f"{k2_bound[0]:.3f} ms ({k2_bound[1]}; {k2_bound[0] / k2_ms:.1%} of it) "
+          f"{card}", flush=True)
+    del cm, batch, dest
     torch.cuda.empty_cache()
 
     # --- 6. K3: CUDA kernel against the plain version -------------------------
@@ -363,14 +368,24 @@ def main() -> None:
     ek.COUNT.reset()
     hk.COUNT.reset()
     cc.COUNT.reset()
-    t0 = time.perf_counter()
-    hist, louds, peaks = runner.analyze_unpacked_light([u] * BATCH_TRACKS, 44100, 2)
-    wall_s = time.perf_counter() - t0
-    counts = {"entropy_decode": ek.COUNT.kernel, "requant_stereo": hk.COUNT.kernel}
+    # The lane-major decode and its unsort are off the main path now: make
+    # any call of them fail the run (the spectrum row gathers are gone
+    # from the code).
+    off_path = {f: getattr(ek, f) for f in ("decode_blocks_reference", "unsort_blocks")}
+    for f in off_path:
+        setattr(ek, f, lambda *a, f=f, **k: check(False, f"{f} ran on the main path"))
+    try:
+        t0 = time.perf_counter()
+        hist, louds, peaks = runner.analyze_unpacked_light([u] * BATCH_TRACKS, 44100, 2)
+        wall_s = time.perf_counter() - t0
+    finally:
+        for f, fn in off_path.items():
+            setattr(ek, f, fn)
+    counts = {"entropy_decode_rows": ek.COUNT.kernel, "requant_stereo": hk.COUNT.kernel}
     plain_calls = ek.COUNT.plain + hk.COUNT.plain + cc.COUNT.plain
     timing = runner.last_timings
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(all(v > 0 for v in counts.values()), f"both kernels launched: {counts}")
+    check(all(v == 1 for v in counts.values()), f"K1 and K2 launched once: {counts}")
     check(plain_calls == 0, f"no plain-version calls on CUDA ({plain_calls})")
     check(hist.shape == (BATCH_TRACKS, 12000), "histogram shape")
     check(bool(np.isfinite(louds).all() and np.isfinite(peaks).all()),
@@ -385,10 +400,43 @@ def main() -> None:
     check(bool(np.allclose(peaks[0], cpu_peaks[0], rtol=2e-4, atol=1e-6)),
           f"peak within rtol 2e-4 of CPU ({peaks[0]} vs {cpu_peaks[0]})")
     print(f"slice: Runner.analyze_unpacked_light {BATCH_TRACKS} x {track_s:.2f} s "
-          f"on {dev}: launches {counts}, plain calls {plain_calls}; track 0 "
+          f"on {dev}: launches {counts}, plain calls {plain_calls}, unsort and "
+          f"lane-major decode calls 0; track 0 "
           f"gain {64.82 - louds[0]:.2f} dB, peak {peaks[0]:.6f}, windows "
           f"{int(win_counts[0])} vs CPU gain {64.82 - cpu_louds[0]:.2f} dB, "
           f"peak {cpu_peaks[0]:.6f}, windows {int(cpu_hist.sum())}", flush=True)
+
+    # The light device phase by stage: CUDA events recorded as each stage
+    # of analysis_core_light has been enqueued, median of 3 runs.
+    prep, rest, g_lt = pr.prepare_batch_arrays_light([u] * BATCH_TRACKS, 2)
+    batch = to_dev((prep.scalars, prep.buf, prep.meta, prep.inv) + tuple(rest))
+    runs = []
+    for _ in range(3):
+        events = []
+
+        def mark(stage):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((stage, ev))
+
+        torch.cuda.synchronize()
+        mark("start")
+        pr.analysis_core_light(runner.tail(44100, 2), *batch, nb=prep.nb, g_max=g_lt,
+                               on_stage=mark)
+        torch.cuda.synchronize()
+        runs.append({st: a.elapsed_time(b)
+                     for (_, a), (st, b) in zip(events, events[1:])})
+    del batch
+    stage_ms = {st: float(np.median([r[st] for r in runs])) for st in runs[0]}
+    stage_ms["gathers"] += stage_ms.pop("row map")
+    order = ["K1", "gathers", "K2", "hybrid GEMMs", "overlap-add + polyphase", "IIR",
+             "histogram + index", "peak"]
+    check(sorted(order) == sorted(stage_ms), f"stages {sorted(stage_ms)}")
+    total_ms = sum(stage_ms.values())
+    print(f"light stages {card} (CUDA events, median of 3; gathers = row map + "
+          f"scalefactor/info/gmeta gathers): " + "; ".join(
+              f"{st} {stage_ms[st]:.3f} ms ({stage_ms[st] / total_ms:.1%})" for st in order)
+          + f"; sum {total_ms:.3f} ms", flush=True)
 
     # --- 8. the host-decoded route at full size ---------------------------------
     runner.analyze_unpacked([full] * BATCH_TRACKS, 44100, 2)  # warm-up
@@ -479,7 +527,7 @@ def main() -> None:
           f"{timing['device_s']:.3f} s (sum {split:.3f}); {audio_s:.0f} s of audio, "
           f"real-time factor {audio_s / wall_s:.0f}x; device-only "
           f"{audio_s / timing['device_s']:.0f}x; peak device memory "
-          f"{peak_gb:.2f} GB; K1 {k1_ms:.3f} ms vs plain {k1_plain_ms:.1f} ms; "
+          f"{peak_gb:.3f} GB; K1 {k1_ms:.3f} ms vs plain {k1_plain_ms:.1f} ms; "
           f"K2 {k2_ms:.3f} ms vs plain {k2_plain_ms:.3f} ms", flush=True)
     print(f"times {card}: heavy slice wall {h_wall_s:.3f} s = host prep "
           f"{h_timing['prep_s']:.3f} s + h2d {h_timing['h2d_s']:.3f} s + device "
@@ -491,14 +539,14 @@ def main() -> None:
           flush=True)
 
     kernels = [
-        {"name": "entropy_decode", "route": "cuda",
+        {"name": "entropy_decode_rows", "route": "cuda",
          "source": "mp3rgain_tpu_torch/csrc/entropy_decode.cu",
          "replaces": "mp3rgain_tpu/decode/entropy_kernel.py:154",
-         "launches": counts["entropy_decode"], "max_abs_err": k1_err,
+         "launches": counts["entropy_decode_rows"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None},
-        {"name": "requant_stereo", "route": "triton",
-         "source": "mp3rgain_tpu_torch/decode/hybrid_kernel.py",
+        {"name": "requant_stereo", "route": "cuda",
+         "source": "mp3rgain_tpu_torch/csrc/requant_stereo.cu",
          "replaces": "mp3rgain_tpu/decode/hybrid_kernel.py:163",
          "launches": counts["requant_stereo"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],

@@ -5,10 +5,11 @@ route (host light walk → device Huffman decode → requantize + stereo →
 hybrid and polyphase GEMMs → equal-loudness IIR → loudness histogram) and
 the host-decoded route (host full decode → requantize + stereo →
 class-core GEMMs → polyphase GEMMs → the same IIR and histogram). The JAX
-package's Pallas kernels are rewritten by hand for NVIDIA Hopper: the
-Huffman decode in CUDA C++ (csrc/entropy_decode.cu), the fused
-requantize + stereo pass in Triton (decode/hybrid_kernel.py) and the
-split-bf16 class-core GEMM in CUDA C++ (csrc/class_core_gemm.cu). The
+package's Pallas kernels are rewritten by hand for NVIDIA Hopper in
+CUDA C++: the Huffman decode, which writes each spectrum straight into
+the row the next stage reads (csrc/entropy_decode.cu), the fused
+requantize + stereo pass (csrc/requant_stereo.cu) and the split-bf16
+class-core GEMM (csrc/class_core_gemm.cu). The
 host code it needs from mp3rgain_tpu (the native C++ front-end in
 _native/, built with g++ on first use by native.py; the MP3 front-end,
 the table builders, the filter coefficients, the buffer pool, the
@@ -18,6 +19,7 @@ equal to their originals.
 
 Entry points: analysis.analyze_track_internal / analyze_album /
 find_peak_amplitude, parallel.runner.Runner.analyze_unpacked_light and
-.analyze_unpacked, and decode.synthesis.decode_file, each with an
-explicit device; python -m mp3rgain_tpu_torch.tools.hk_dotprobe times K3.
+.analyze_unpacked, and decode.synthesis.decode_file, each on the CUDA
+card unless given device="cpu"; python -m
+mp3rgain_tpu_torch.tools.hk_dotprobe times K3.
 """

@@ -111,10 +111,12 @@ def build(force: bool = False) -> float:
 def _declare(lib: ctypes.CDLL) -> None:
     vp = ctypes.c_void_p
     i = ctypes.c_int
-    lib.mg_cuda_entropy_decode.restype = ctypes.c_int
-    lib.mg_cuda_entropy_decode.argtypes = [
-        vp, i, vp, vp, vp, i, i, vp, vp, i, i, vp,
+    lib.mg_cuda_entropy_decode_rows.restype = ctypes.c_int
+    lib.mg_cuda_entropy_decode_rows.argtypes = [
+        vp, i, vp, vp, vp, i, i, vp, i, i, vp, vp, vp, vp, i, vp,
     ]
+    lib.mg_cuda_requant_stereo.restype = ctypes.c_int
+    lib.mg_cuda_requant_stereo.argtypes = [vp, vp, vp, vp, vp, vp, i, i, vp]
     lib.mg_cuda_class_core_gemm.restype = ctypes.c_int
     lib.mg_cuda_class_core_gemm.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp]
     lib.mg_cuda_class_core_gemm_smem_bytes.restype = ctypes.c_int

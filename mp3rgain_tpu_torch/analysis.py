@@ -4,7 +4,8 @@ Counterpart of the MP3 part of mp3rgain_tpu/analysis.py, always on the
 raw-bits ("light") route: native light walk → parallel.runner.Runner
 (Huffman decode, requantize + stereo, hybrid and polyphase GEMMs, IIR,
 histogram on the device) → 95th-percentile readout; gain = PINK_REF −
-loudness. Every entry point takes an explicit device. AAC input is not
+loudness. Every entry point runs on the CUDA card unless it is given
+device="cpu" (as the tests do); without a card it raises. AAC input is not
 ported yet (ROADMAP Queue 1 item 10) and raises NotImplementedError.
 """
 
@@ -91,7 +92,7 @@ def _analyze_mp3(path, device):
 
 def analyze_track_internal(path: os.PathLike | str,
                            track_index: int | None = None, *,
-                           device) -> TrackAnalysisInternal:
+                           device="cuda") -> TrackAnalysisInternal:
     _require_mp3(path)
     # MP3 streams have exactly one audio track.
     if track_index not in (None, 0):
@@ -110,7 +111,7 @@ def analyze_track_internal(path: os.PathLike | str,
 
 
 def analyze_album(files, track_index: int | None = None, *,
-                  device) -> AlbumGainResult:
+                  device="cuda") -> AlbumGainResult:
     """Album analysis: union histogram (duration-weighted), peak max."""
     tracks = []
     album_peak = 0.0
@@ -132,7 +133,7 @@ def analyze_album(files, track_index: int | None = None, *,
 
 
 def find_peak_amplitude(path: os.PathLike | str, *,
-                        device) -> PeakAmplitudeResult:
+                        device="cuda") -> PeakAmplitudeResult:
     """True decoded peak over all channels (unclipped, like mp3gain)."""
     _require_mp3(path)
     _, _, peak, sr = _analyze_mp3(path, device)

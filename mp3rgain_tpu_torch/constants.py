@@ -11,7 +11,9 @@ buffers of parallel.runner.LightTail:
     int32 tables (luts_from_packed);
   - the one-hot slot (3, 64, 576) and win (3, 3, 576) expansions, and
     the host-decoded route's short-layout reorder, become int32 index
-    tables, -1 meaning none (onehot_to_index);
+    tables, -1 meaning none (onehot_to_index); for K2 the slot and win
+    indices, pretab, short flag and band start are also packed into one
+    int32 word per (class, sample) (hybrid_kernel.pack_class_words);
   - GEMM constants become float32, the IIR constants stay float64 (cast
     to the filtered signal's dtype at use); the host-decoded route's
     class cores are split once into bf16 hi/lo pairs for K3
@@ -62,17 +64,22 @@ def onehot_to_index(onehot: np.ndarray) -> np.ndarray:
 
 def hybrid_state(arrays: dict) -> dict[str, torch.Tensor]:
     """HybridTables buffers from _consts and natural_cores arrays."""
-    from .decode.hybrid_kernel import is_ratio_table
+    from .decode.hybrid_kernel import is_ratio_table, pack_class_words
 
     def f32(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
 
+    slot_idx = onehot_to_index(arrays["slot"])
+    win_idx = onehot_to_index(arrays["win"])
     return {
-        "slot_idx": torch.from_numpy(onehot_to_index(arrays["slot"])),
-        "win_idx": torch.from_numpy(onehot_to_index(arrays["win"])),
+        "slot_idx": torch.from_numpy(slot_idx),
+        "win_idx": torch.from_numpy(win_idx),
         "pretab": f32(arrays["pretab"]),
         "band_start": f32(arrays["band_start"]),
         "short": f32(arrays["short"]),
+        "class_words": torch.from_numpy(pack_class_words(
+            slot_idx, win_idx, arrays["pretab"], arrays["band_start"],
+            arrays["short"])),
         "is_ratio": torch.from_numpy(is_ratio_table().copy()),
         "cores2": f32(arrays["cores2"]),
         "head": f32(arrays["head"]),

@@ -5,12 +5,16 @@ Counterpart of mp3rgain_tpu/decode/entropy_kernel.py. The host side
 held bit-identical to it by the tests: the port never imports that module
 because it imports jax at the top. The device side is:
 
-  - decode_blocks: on CUDA tensors, launches the hand-written kernel
-    (csrc/entropy_decode.cu, which replaces the Pallas kernel
-    entropy_kernel._kernel); on CPU tensors, runs decode_blocks_reference.
+  - decode_rows: on CUDA tensors, launches the hand-written kernel
+    csrc/entropy_decode.cu, which replaces the Pallas kernel
+    entropy_kernel._kernel and the unsort and row gathers after it: each
+    lane's spectrum goes straight into the output row a map (dest) gives
+    it; on CPU tensors, runs decode_rows_reference.
+  - decode_rows_reference: the plain composition decode_blocks_reference
+    → unsort_blocks' mask → scatter through dest.
   - decode_blocks_reference: a lockstep, lane-vectorised torch decode of
-    the same (scalars, buf, meta) into the same (spec_b, mout), with
-    gathers for the word fetches and table lookups.
+    (scalars, buf, meta) into the Pallas kernel's lane-major (spec_b,
+    mout), with gathers for the word fetches and table lookups.
   - unsort_blocks: masks bad lanes and restores input row order.
 
 The Huffman tables are plain per-window tables built from
@@ -54,7 +58,7 @@ W8_MAX = 17
 SUBG = 128
 SUBG_N = LANES // SUBG
 
-# Kernel launches and plain-version calls of decode_blocks.
+# Kernel launches and plain-version calls of decode_rows.
 COUNT = LaunchCount()
 
 
@@ -139,6 +143,7 @@ class EntropyLuts(nn.Module):
         super().__init__()
         for name, arr in plain_luts().items():
             self.register_buffer(name, torch.from_numpy(arr.copy()))
+        self._packed = None  # (key of the tables it was built from, tensor)
 
     @property
     def n_l2(self) -> int:
@@ -150,12 +155,14 @@ class EntropyLuts(nn.Module):
 
     def packed(self) -> torch.Tensor:
         """All four tables back to back, one int32 entry ab | field << 8
-        per (group, window): the CUDA kernel's shared-memory form."""
-        parts = [
-            (t[..., 0] | (t[..., 1] << 8)).reshape(-1)
-            for t in (self.lut_a, self.lut_b, self.lut_c, self.lut_ct)
-        ]
-        return torch.cat(parts).contiguous()
+        per (group, window): the CUDA kernel's shared-memory form. Built
+        once and reused until a table is moved or changed in place."""
+        tables = (self.lut_a, self.lut_b, self.lut_c, self.lut_ct)
+        key = tuple((t.data_ptr(), t._version) for t in tables)
+        if self._packed is None or self._packed[0] != key:
+            parts = [(t[..., 0] | (t[..., 1] << 8)).reshape(-1) for t in tables]
+            self._packed = (key, torch.cat(parts).contiguous())
+        return self._packed[1]
 
 
 # ---------------------------------------------------------------------------
@@ -339,37 +346,83 @@ def _check_inputs(scalars, buf, meta):
     return dev, nb
 
 
-def decode_blocks(scalars: torch.Tensor, buf: torch.Tensor,
-                  meta: torch.Tensor, luts: EntropyLuts):
-    """Huffman-decode prepared blocks (no unsort).
+def _check_row_inputs(scalars, buf, meta, dest, n_rows):
+    dev, nb = _check_inputs(scalars, buf, meta)
+    check_tensor("dest", dest, torch.int32, (nb * LANES,), dev)
+    if not 0 <= n_rows < 2**31:
+        raise ValueError(f"n_rows {n_rows}: expected 0 <= n_rows < 2**31")
+    return dev, nb
+
+
+def decode_rows(scalars: torch.Tensor, buf: torch.Tensor, meta: torch.Tensor,
+                luts: EntropyLuts, dest: torch.Tensor, n_rows: int):
+    """Huffman-decode prepared blocks straight into output rows.
 
     scalars (nb, 3 + SUBG_N) int32, buf (g_pad, 8, SUBG) int32, meta
-    (nb, META_ROWS, LANES) int16 holding prepare_batch's uint16 bits, all
-    on one device, as prepare_batch made them (its offsets keep every
-    read inside buf). Returns (spec_b (nb, 576, LANES) int16, mout (nb,
-    8, LANES) int32), both in sorted lane order.
+    (nb, META_ROWS, LANES) int16 holding prepare_batch's uint16 bits, as
+    prepare_batch made them (its offsets keep every read inside buf), and
+    dest (nb * LANES,) int32: the output row of each SORTED lane, -1 (or
+    any value outside [0, n_rows)) for none; rows are distinct. Returns
+    (spec_rows (n_rows, 576) int16, big_end (n_rows,) int32, count1_end
+    (n_rows,) int32): lane dest[l]'s decode in row dest[l], a lane that
+    went bad as an all-zero row with both ends 0 (unsort_blocks' mask),
+    and rows no lane writes all zero.
 
-    CUDA tensors launch the CUDA kernel on the current stream without
-    synchronising; CPU tensors run decode_blocks_reference."""
-    dev, nb = _check_inputs(scalars, buf, meta)
+    CUDA tensors launch the CUDA kernel (csrc/entropy_decode.cu) on the
+    current stream without synchronising; CPU tensors run
+    decode_rows_reference."""
+    dev, nb = _check_row_inputs(scalars, buf, meta, dest, n_rows)
     if dev.type == "cpu":
-        return decode_blocks_reference(scalars, buf, meta, luts)
+        return decode_rows_reference(scalars, buf, meta, luts, dest, n_rows)
     if dev.type != "cuda":
-        raise ValueError(f"decode_blocks: unsupported device {dev}")
+        raise ValueError(f"decode_rows: unsupported device {dev}")
     table = luts.packed()
     check_tensor("luts", table, torch.int32, None, dev)
-    spec = torch.empty((nb, 576, LANES), dtype=torch.int16, device=dev)
-    mout = torch.empty((nb, MOUT_ROWS, LANES), dtype=torch.int32, device=dev)
+    spec = torch.empty((n_rows, 576), dtype=torch.int16, device=dev)
+    big_end = torch.empty((n_rows,), dtype=torch.int32, device=dev)
+    count1_end = torch.empty((n_rows,), dtype=torch.int32, device=dev)
+    covered = torch.empty((n_rows,), dtype=torch.uint8, device=dev)
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.mg_cuda_entropy_decode(
-        scalars.data_ptr(), scalars.shape[1], buf.data_ptr(),
-        meta.data_ptr(), table.data_ptr(), luts.n_l2, luts.n_l3,
-        spec.data_ptr(), mout.data_ptr(), nb, LANES, stream,
-    )
+    with torch.cuda.device(dev):
+        rc = lib.mg_cuda_entropy_decode_rows(
+            scalars.data_ptr(), scalars.shape[1], buf.data_ptr(),
+            meta.data_ptr(), table.data_ptr(), luts.n_l2, luts.n_l3,
+            dest.data_ptr(), nb, LANES, spec.data_ptr(), big_end.data_ptr(),
+            count1_end.data_ptr(), covered.data_ptr(), n_rows, stream,
+        )
     COUNT.kernel += 1
-    _build.check(rc, "entropy_decode launch")
-    return spec, mout
+    _build.check(rc, "entropy_decode_rows launch")
+    return spec, big_end, count1_end
+
+
+def decode_rows_reference(scalars: torch.Tensor, buf: torch.Tensor,
+                          meta: torch.Tensor, luts: EntropyLuts,
+                          dest: torch.Tensor, n_rows: int):
+    """Plain torch version of decode_rows (same contract): the lockstep
+    decode_blocks_reference, unsort_blocks' bad-lane mask (in sorted lane
+    order), then a scatter of each lane's row through dest into zeros."""
+    dev, nb = _check_row_inputs(scalars, buf, meta, dest, n_rows)
+    COUNT.plain += 1
+    spec_b, mout = decode_blocks_reference(scalars, buf, meta, luts)
+    lanes = torch.arange(nb * LANES, device=dev)
+    spec, big_end, count1_end, _ok = unsort_blocks(spec_b, mout, lanes, nb=nb)
+    d = dest.long()
+    d = torch.where((d >= 0) & (d < n_rows), d, n_rows)  # row n_rows: dropped
+    rows = torch.zeros((n_rows + 1, 576), dtype=torch.int16, device=dev)
+    rows[d] = spec
+    ends = torch.zeros((2, n_rows + 1), dtype=torch.int32, device=dev)
+    ends[:, d] = torch.stack([big_end, count1_end])
+    return rows[:n_rows], ends[0, :n_rows], ends[1, :n_rows]
+
+
+def input_order_dest(inv: torch.Tensor, n: int) -> torch.Tensor:
+    """dest that puts the decode of input row i (i < n) in row i: the
+    unsort of prepare_batch's lane order as a decode_rows map (padding
+    rows, i >= n, get -1)."""
+    dest = torch.full_like(inv, -1)
+    dest[inv[:n].long()] = torch.arange(n, dtype=inv.dtype, device=inv.device)
+    return dest
 
 
 def _extract(u0, u1, u2, rel, nbits: int):
@@ -394,11 +447,13 @@ def _lookup(table, gid, win):
 
 def decode_blocks_reference(scalars: torch.Tensor, buf: torch.Tensor,
                             meta: torch.Tensor, luts: EntropyLuts):
-    """Plain torch version of decode_blocks: every lane steps in lockstep,
-    as in the Pallas kernel (mp3rgain_tpu/decode/entropy_kernel.py:154-571),
-    with the per-lane word fetch and table lookups as gathers."""
+    """The Pallas kernel's decode in plain torch: every lane steps in
+    lockstep, as in mp3rgain_tpu/decode/entropy_kernel.py:154-571, with
+    the per-lane word fetch and table lookups as gathers. Returns its
+    outputs, (spec_b (nb, 576, LANES) int16, mout (nb, 8, LANES) int32),
+    both in sorted lane order; mout's rows are big_end, count1_end, bad,
+    p, n, q, alive, 0."""
     dev, nb = _check_inputs(scalars, buf, meta)
-    COUNT.plain += 1
     i64 = torch.int64
     L = LANES
     lut_a = luts.lut_a.to(i64)

@@ -1,32 +1,32 @@
-"""Fused requantize + stereo (Triton) and the natural-order hybrid GEMMs.
+"""Fused requantize + stereo (K2, CUDA) and the natural-order hybrid GEMMs.
 
 Counterpart of mp3rgain_tpu/decode/hybrid_kernel.py. The numpy builders
 (_perms, _consts, natural_cores, the GM_* indices) are copies of the JAX
 module's, held bit-identical by the tests. The device side is:
 
-  - fused_requant_stereo: on CUDA tensors, launches a Triton kernel that
-    replaces the Pallas kernel hybrid_kernel._kernel_body; on CPU tensors,
-    runs fused_requant_stereo_reference (torch ops mirroring
+  - fused_requant_stereo: on CUDA tensors, launches the hand-written
+    kernel csrc/requant_stereo.cu, which replaces the Pallas kernel
+    hybrid_kernel._kernel_body; on CPU tensors, runs
+    fused_requant_stereo_reference (torch ops mirroring
     hybrid_kernel.py:171-246, same exp2(log2|x|·4/3) form).
   - hybrid_gemm: hybrid_xla on torch.matmul — plain large products that
     XLA computed outside any kernel.
 
-The Triton kernel. What it computes, per granule-channel row r and
-natural-order sample i of its layout class c (long / short / mixed):
+What K2 computes, per granule-channel row r and natural-order sample i
+of its layout class c (long / short / mixed):
   x = sign(s)·|s|^(4/3)·2^(0.25(gg−210) − ½(1+sfs)(scf[slot_c(i)] +
       preflag·pretab_c(i)) − 2·short_c(i)·sbg[win_c(i)])
-then M/S and intensity stereo across the two channels' rows. What bounds
-it on this card: bytes. Per row pair it reads 2×(1152 + 64 + 64) bytes
-and writes 2×2304 (~7 KB; ~2 GB for a 64×60 s batch) against a few dozen
-flops per sample, far below the H100's ridge point. The design does what
-the bytes allow: one pass, int16 in and f32 out, nothing intermediate in
-HBM. The TPU's one-hot dots that expanded scalefactors and subblock gains
-become per-class index tables (constants.onehot_to_index) read as
-gathers, and the intensity ratios tan(min(is_pos·π/12, 1.55)) and io^n,
-which depend only on the integer is_pos and two flag bits, come from a
-small f32 table (is_ratio_table). A block is BLOCK_R rows × 64 samples
-(576 = 9 × 64, so the column grid needs no mask); rows need no padding
-(the JAX package's 256-row tiles were a TPU tile artifact).
+then M/S and intensity stereo across the two channels' rows. The TPU's
+one-hot dots that expanded scalefactors and subblock gains become
+per-class index tables (constants.onehot_to_index); the kernel reads
+them, with pretab, the short flag and the intensity band start, packed
+into one 32-bit word per (class, sample) (pack_class_words). The
+intensity ratios tan(min(is_pos·π/12, 1.55)) and io^n depend only on the
+integer is_pos and two flag bits, so they come from a small f32 table of
+the plain formula (is_ratio_table). Rows need no padding (the JAX
+package's 256-row tiles were a TPU tile artifact). The source note of
+csrc/requant_stereo.cu says what bounds the kernel and how it is laid
+out for the card.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import _build
 from ..device import LaunchCount, check_tensor
 from .tables import KIND_MIXED, build_tables, row_tables
 
@@ -60,6 +61,14 @@ _SQRT2_INV = float(1.0 / np.sqrt(2.0))
 
 # is_pos values the ratio table covers (scalefactor slots are <= 31).
 IS_POS_N = 64
+
+# One 32-bit class word per (layout class, natural sample): (shift, bits)
+# of each field. slot and win are stored plus one (0 = none).
+CW_SLOT = (0, 7)  # scalefactor slot + 1, 0..64
+CW_WIN = (7, 2)  # subblock window + 1, 0..3
+CW_PRETAB = (9, 2)  # pretab, 0..3
+CW_SHORT = (11, 1)  # short-block flag
+CW_BAND_START = (12, 10)  # intensity band start, 0..576
 
 # Kernel launches and plain-version calls of fused_requant_stereo.
 COUNT = LaunchCount()
@@ -158,7 +167,7 @@ def _is_ratios(is_pos, lsf, isc):
 @lru_cache(maxsize=None)
 def is_ratio_table() -> np.ndarray:
     """(2 lsf, 2 intensity_scale, IS_POS_N, 2) f32 [kl, kr] for integer
-    is_pos: the Triton kernel's form of _is_ratios."""
+    is_pos: the CUDA kernel's form of _is_ratios."""
     is_pos = torch.arange(IS_POS_N, dtype=torch.float32).view(1, 1, -1)
     lsf = torch.tensor([False, True]).view(2, 1, 1)
     isc = torch.tensor([False, True]).view(1, 2, 1)
@@ -166,11 +175,29 @@ def is_ratio_table() -> np.ndarray:
     return torch.stack([kl, kr], dim=-1).numpy().astype(np.float32)
 
 
+def pack_class_words(slot_idx, win_idx, pretab, band_start, short) -> np.ndarray:
+    """The K2 tables of one sample-rate row, (3, 576) each (slot and win
+    indices with -1 for none, pretab, band start and short flag as
+    integral values), as (3, 576) int32 class words with the CW_* fields.
+    Raises if a value does not fit its field."""
+    fields = ((CW_SLOT, np.asarray(slot_idx) + 1), (CW_WIN, np.asarray(win_idx) + 1),
+              (CW_PRETAB, pretab), (CW_SHORT, short), (CW_BAND_START, band_start))
+    word = np.zeros((3, 576), np.int64)
+    for (shift, bits), vals in fields:
+        v = np.asarray(vals, dtype=np.float64)
+        iv = v.astype(np.int64)
+        if not (np.array_equal(iv, v) and iv.min() >= 0 and iv.max() < (1 << bits)):
+            raise ValueError(f"class word field at bit {shift} does not fit {bits} bits")
+        word |= iv << shift
+    return word.astype(np.int32)
+
+
 class HybridTables(nn.Module):
     """Per-sample-rate-row constants of the requantize → hybrid span:
-    the K2 gather tables (slot_idx, win_idx: (3, 576) int32, -1 = none;
-    pretab, band_start, short: (3, 576) f32; is_ratio) and the GEMM
-    cores (cores2, head, wins) of natural_cores."""
+    the K2 tables (slot_idx, win_idx: (3, 576) int32, -1 = none;
+    pretab, band_start, short: (3, 576) f32, read by the plain version;
+    class_words: (3, 576) int32, the same five packed for the kernel;
+    is_ratio) and the GEMM cores (cores2, head, wins) of natural_cores."""
 
     def __init__(self, sr_row: int):
         super().__init__()
@@ -200,122 +227,42 @@ def _check_inputs(spec, scf, gmeta):
     return dev, c, r
 
 
+# The kernel indexes (row, 8-sample chunk) pairs with 32-bit ints.
+MAX_ROWS = (1 << 30) // 72
+
+
 def fused_requant_stereo(spec: torch.Tensor, scf: torch.Tensor,
                          gmeta: torch.Tensor, tables: HybridTables):
     """(C, R, 576) int16 spectra + (C, R, 64) int8 scf + (C, R, GM_N)
     int32 gmeta → (C, R, 576) f32 requantized, stereo-processed spectra
     in natural spectral order. Rows are granule-times, channel-major.
 
-    CUDA tensors launch the Triton kernel on the current stream; CPU
-    tensors run fused_requant_stereo_reference."""
+    CUDA tensors launch the CUDA kernel (csrc/requant_stereo.cu) on the
+    current stream without synchronising; CPU tensors run
+    fused_requant_stereo_reference."""
     dev, c, r = _check_inputs(spec, scf, gmeta)
     if dev.type == "cpu":
         return fused_requant_stereo_reference(spec, scf, gmeta, tables)
     if dev.type != "cuda":
         raise ValueError(f"fused_requant_stereo: unsupported device {dev}")
-    for name in ("slot_idx", "win_idx"):
-        check_tensor(name, getattr(tables, name), torch.int32, (3, 576), dev)
-    for name in ("pretab", "band_start", "short"):
-        check_tensor(name, getattr(tables, name), torch.float32, (3, 576), dev)
+    if r > MAX_ROWS:
+        raise ValueError(f"fused_requant_stereo: {r} rows, at most {MAX_ROWS}")
+    check_tensor("class_words", tables.class_words, torch.int32, (3, 576), dev)
     check_tensor("is_ratio", tables.is_ratio, torch.float32,
                  (2, 2, IS_POS_N, 2), dev)
     out = torch.empty((c, r, 576), dtype=torch.float32, device=dev)
     if r == 0:
         return out
-    kernel, block_r, block_s = _triton_kernel()
-    grid = (-(-r // block_r), 576 // block_s)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        kernel[grid](
-            spec, scf, gmeta, tables.slot_idx, tables.win_idx,
-            tables.pretab, tables.band_start, tables.short, tables.is_ratio,
-            out, r, NCH=c, BLOCK_R=block_r, BLOCK_S=block_s, num_warps=4,
-        )
+        rc = lib.mg_cuda_requant_stereo(
+            spec.data_ptr(), scf.data_ptr(), gmeta.data_ptr(),
+            tables.class_words.data_ptr(), tables.is_ratio.data_ptr(),
+            out.data_ptr(), c, r, stream)
     COUNT.kernel += 1
+    _build.check(rc, "requant_stereo launch")
     return out
-
-
-@lru_cache(maxsize=None)
-def _triton_kernel():
-    """Compile-on-first-use Triton kernel (triton is imported here, never
-    at module import: hosts without it import this module fine)."""
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def _requant(spec_ptr, scf_ptr, gm_ptr, slot_ptr, win_ptr, pre_ptr,
-                 short_ptr, row, cols, rmask, m2):
-        gm = gm_ptr + row * 16
-        gg = tl.load(gm + 0, mask=rmask, other=0).to(tl.float32)
-        sfs = tl.load(gm + 1, mask=rmask, other=0).to(tl.float32)
-        preflag = tl.load(gm + 2, mask=rmask, other=0).to(tl.float32)
-        cls = tl.load(gm + 7, mask=rmask, other=0)
-        t = cls[:, None] * 576 + cols[None, :]
-        slot = tl.load(slot_ptr + t, mask=m2, other=-1)
-        scf_s = tl.load(scf_ptr + row[:, None] * 64 + slot,
-                        mask=m2 & (slot >= 0), other=0).to(tl.float32)
-        widx = tl.load(win_ptr + t, mask=m2, other=-1)
-        sbg_s = tl.load(gm[:, None] + 3 + widx, mask=m2 & (widx >= 0),
-                        other=0).to(tl.float32)
-        pre = tl.load(pre_ptr + t, mask=m2, other=0.0)
-        short = tl.load(short_ptr + t, mask=m2, other=0.0)
-        s = tl.load(spec_ptr + row[:, None] * 576 + cols[None, :], mask=m2,
-                    other=0).to(tl.float32)
-        scf_mult = 0.5 * (1.0 + sfs)
-        exponent = (
-            (0.25 * (gg - 210.0))[:, None]
-            - scf_mult[:, None] * (scf_s + preflag[:, None] * pre)
-            - 2.0 * short * sbg_s
-        )
-        # |s|^(4/3) via exp2/log2; s == 0 -> log2 = -inf -> exp2 = 0.
-        xm = tl.exp2(tl.log2(tl.abs(s)) * (4.0 / 3.0))
-        sign = tl.where(s > 0.0, 1.0, tl.where(s < 0.0, -1.0, 0.0))
-        return sign * xm * tl.exp2(exponent), scf_s, cls
-
-    @triton.jit
-    def requant_stereo_kernel(spec_ptr, scf_ptr, gm_ptr, slot_ptr, win_ptr,
-                              pre_ptr, bs_ptr, short_ptr, ratio_ptr, out_ptr,
-                              R, NCH: tl.constexpr, BLOCK_R: tl.constexpr,
-                              BLOCK_S: tl.constexpr):
-        rows = (tl.program_id(0) * BLOCK_R
-                + tl.arange(0, BLOCK_R)).to(tl.int64)
-        cols = tl.program_id(1) * BLOCK_S + tl.arange(0, BLOCK_S)
-        rmask = rows < R
-        m2 = rmask[:, None] & (cols[None, :] < 576)
-        x0, scf_s0, cls0 = _requant(spec_ptr, scf_ptr, gm_ptr, slot_ptr,
-                                    win_ptr, pre_ptr, short_ptr, rows, cols,
-                                    rmask, m2)
-        out0 = out_ptr + rows[:, None] * 576 + cols[None, :]
-        if NCH == 2:
-            row1 = rows + R
-            x1, scf_s1, cls1 = _requant(spec_ptr, scf_ptr, gm_ptr, slot_ptr,
-                                        win_ptr, pre_ptr, short_ptr, row1,
-                                        cols, rmask, m2)
-            gm0 = gm_ptr + rows * 16
-            ms = tl.load(gm0 + 8, mask=rmask, other=0) == 1
-            isf = tl.load(gm0 + 9, mask=rmask, other=0) == 1
-            lsf = tl.load(gm0 + 10, mask=rmask, other=0)
-            rzero = tl.load(gm0 + 12, mask=rmask, other=0).to(tl.float32)
-            isc = tl.load(gm_ptr + row1 * 16 + 11, mask=rmask, other=0)
-            left = tl.where(ms[:, None], (x0 + x1) * 0.7071067811865476, x0)
-            right = tl.where(ms[:, None], (x0 - x1) * 0.7071067811865476, x1)
-            band_start = tl.load(bs_ptr + cls0[:, None] * 576 + cols[None, :],
-                                 mask=m2, other=0.0)
-            in_band = isf[:, None] & (band_start >= rzero[:, None])
-            is_pos = scf_s1.to(tl.int32)  # ch1 scalefactors, natural layout
-            ridx = ((lsf * 2 + isc)[:, None] * 64 + tl.minimum(is_pos, 63)) * 2
-            kl = tl.load(ratio_ptr + ridx, mask=m2, other=0.0)
-            kr = tl.load(ratio_ptr + ridx + 1, mask=m2, other=0.0)
-            # is_pos 7 is illegal (no intensity) in MPEG-1 streams.
-            apply_i = in_band & ((lsf[:, None] != 0) | (is_pos != 7))
-            left = tl.where(apply_i, kl * x0, left)
-            right = tl.where(apply_i, kr * x0, right)
-            tl.store(out0, left, mask=m2)
-            tl.store(out_ptr + row1[:, None] * 576 + cols[None, :], right,
-                     mask=m2)
-        else:
-            tl.store(out0, x0, mask=m2)
-
-    return requant_stereo_kernel, 32, 64
 
 
 def _requant_reference(spec, scf, gm, tables):

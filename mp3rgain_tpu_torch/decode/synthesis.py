@@ -366,7 +366,7 @@ def decode_batch(b: GranuleBatch, tables: DecodeTables) -> torch.Tensor:
     return _synthesis(out18, tables)
 
 
-def decode_file(path, *, device) -> tuple[np.ndarray, int]:
+def decode_file(path, *, device="cuda") -> tuple[np.ndarray, int]:
     """Full-file decode; returns (pcm (C, N) float32, sample_rate)."""
     u = fe.unpack_file(path)
     if u.n == 0:

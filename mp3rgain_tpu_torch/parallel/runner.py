@@ -4,8 +4,9 @@ Counterpart of the single-device paths of mp3rgain_tpu/parallel/runner.py.
 
 The raw-bits ("light") route, the main path: host light walk → host lane
 sort and pack (prepare_batch_arrays_light) → blocking host-to-device
-copies → Huffman decode (K1, CUDA) → unsort and row-map gathers →
-requantize + stereo (K2, Triton) → hybrid and polyphase GEMMs →
+copies → the row map (dest_rows) → Huffman decode (K1, CUDA) straight
+into K2's channel-major rows → scalefactor and info gathers →
+requantize + stereo (K2, CUDA) → hybrid and polyphase GEMMs →
 equal-loudness IIR → RMS-window histogram → 95th-percentile index.
 
 The host-decoded ("heavy") route: host full decode (frontend.unpack_data)
@@ -13,8 +14,8 @@ The host-decoded ("heavy") route: host full decode (frontend.unpack_data)
 spectrum unpack → analysis_tail: the decode back-end of decode.synthesis
 (requantize, stereo, class-core GEMMs in K3, polyphase GEMMs) → the same
 IIR, histogram and index. light_tail(fused=False) feeds the light
-route's decode outputs into that same analysis_tail, so the two routes
-agree exactly.
+route's decode (K1 into track-major rows) into that same analysis_tail,
+so the two routes agree exactly.
 
 The host packers are copies of the JAX package's, held bit-identical by
 the tests. Only the per-track index and peak come back to the host.
@@ -363,35 +364,56 @@ def analysis_core(tail: LightTail, spec_i8, esc_idx, esc_val, scf, info,
     return analysis_tail(tail, spectrum, scf, info, valid_samples)
 
 
-def channel_major_inputs(spec_b, mout, inv, counts, scf, srow, sdata, hrow,
-                         hdata, info, *, nb: int, g_max: int, n_channels: int):
-    """Sorted decode outputs + flat manifest → K2's channel-major inputs:
-    (spec (C, R, 576) int16, scf (C, R, 64) int8, gmeta (C, R, GM_N)
-    int32) with R = B * T granule-times, track-major. Unsorts the decode,
-    gathers every track's rows through the counts-derived row map (padding
-    slots read a zero dummy row) and unpacks the info words into the
-    gmeta fields."""
+def dest_rows(inv, counts, *, g_max: int, n_channels: int,
+              channel_major: bool):
+    """decode_rows' map for a light batch: (dest (npad,) int32, n_rows).
+
+    Unsorted row i of track b (counts-derived row map: i = offs_b + g)
+    goes to row c·(B·T) + b·T + t of K2's channel-major (C, B·T) rows
+    when channel_major (g = t·C + c, T = g_max // C), else to row
+    b·g_max + g of the track-major (B, g_max) rows analysis_tail reads;
+    sorted lane inv[i] takes that row. Lanes of padding rows get -1, and
+    the rows of the map's padding slots (g >= counts_b) stay unwritten."""
+    npad = inv.shape[0]
+    dev = inv.device
+    rowmap = _rowmap_from_counts(counts, g_max, npad)  # (B, G), npad = none
+    bsz = rowmap.shape[0]
+    g = torch.arange(g_max, device=dev)
+    b = torch.arange(bsz, device=dev)[:, None]
+    if channel_major:
+        t = g_max // n_channels
+        target = (g % n_channels) * (bsz * t) + b * t + g // n_channels
+    else:
+        target = b * g_max + g
+    lane = torch.cat([inv.long(), torch.full((1,), npad, device=dev)])[rowmap]
+    dest = torch.full((npad + 1,), -1, dtype=torch.int32, device=dev)
+    dest[lane.reshape(-1)] = target.reshape(-1).to(torch.int32)
+    return dest[:npad], bsz * g_max
+
+
+def channel_major_inputs(spec_rows, big_end, c1end, counts, scf, srow,
+                         sdata, hrow, hdata, info, *, nb: int, g_max: int,
+                         n_channels: int):
+    """K1's channel-major rows + flat manifest → K2's inputs: (spec (C, R,
+    576) int16, scf (C, R, 64) int8, gmeta (C, R, GM_N) int32) with R =
+    B * T granule-times, track-major. The spectra and ends are K1's rows
+    as they are; the scalefactors and info words are gathered through the
+    counts-derived row map (padding slots read a zero dummy row) and the
+    info words unpacked into the gmeta fields."""
     nch = n_channels
-    dev = spec_b.device
-    spec, big_end, c1end, _ok = ek.unsort_blocks(spec_b, mout, inv, nb=nb)
+    dev = spec_rows.device
     npad = nb * ek.LANES
     rowmap = _rowmap_from_counts(counts, g_max, npad)
     scf_full = _expand_scf_flat(scf, srow, sdata, hrow, hdata)
     info = torch.cat([info.to(torch.int32) & 0xFFFF,
                       torch.zeros((1, fe.IP_N), dtype=torch.int32, device=dev)])
-    # Row npad is the dummy target for padding slots.
-    spec = torch.cat([spec, torch.zeros((1, 576), dtype=spec.dtype, device=dev)])
-    zs = torch.zeros((1,), dtype=big_end.dtype, device=dev)
-    big_end = torch.cat([big_end, zs])
-    c1end = torch.cat([c1end, zs])
 
     bsz, g = rowmap.shape
     t = g // nch
     r = bsz * t
     rowmap_cm = rowmap.reshape(bsz, t, nch).permute(2, 0, 1).contiguous()
-    spec_cm = spec[rowmap_cm].reshape(nch, r, 576)  # int16
-    del spec
-    rzero_cm = torch.maximum(big_end[rowmap_cm], c1end[rowmap_cm])
+    spec_cm = spec_rows.view(nch, r, 576)
+    rzero_cm = torch.maximum(big_end, c1end).view(nch, bsz, t)
     wp = info[rowmap_cm]  # (C, B, T, IP_N) packed info words
     w0 = wp[..., 0]
     w1 = wp[..., 1]
@@ -418,54 +440,61 @@ def channel_major_inputs(spec_b, mout, inv, counts, scf, srow, sdata, hrow,
     return spec_cm, scf_cm, gmeta
 
 
-def _light_tail_unfused(tail: LightTail, spec_b, mout, inv, counts, scf,
-                        srow, sdata, hrow, hdata, info, valid_samples, *,
+def _light_tail_unfused(tail: LightTail, spec_rows, big_end, c1end, counts,
+                        scf, srow, sdata, hrow, hdata, info, valid_samples, *,
                         nb: int, g_max: int):
-    """Row gathers of the decode outputs into the host-decoded route's
-    (B, G, ...) form, BIG_END/COUNT1_END taken from K1's outputs, then
-    analysis_tail."""
-    spec, big_end, c1end, _ok = ek.unsort_blocks(spec_b, mout, inv, nb=nb)
+    """K1's track-major rows as the host-decoded route's (B, G, ...) form,
+    BIG_END/COUNT1_END taken from K1's outputs, the scalefactors and info
+    gathered through the row map, then analysis_tail."""
     npad = nb * ek.LANES
-    dev = spec.device
+    dev = spec_rows.device
     rowmap = _rowmap_from_counts(counts, g_max, npad)
+    bsz = rowmap.shape[0]
     scf = _expand_scf_flat(scf, srow, sdata, hrow, hdata)[rowmap]
     info = torch.cat([info.to(torch.int32) & 0xFFFF,
                       torch.zeros((1, fe.IP_N), dtype=torch.int32, device=dev)])
     info = _expand_info_light(info[rowmap])
-    # Row npad is the dummy target for padding slots.
-    spectrum = torch.cat([spec, torch.zeros((1, 576), dtype=spec.dtype, device=dev)])
-    spectrum = spectrum[rowmap]
-    del spec
-    zs = torch.zeros((1,), dtype=big_end.dtype, device=dev)
-    info[..., fe.BIG_END] = torch.cat([big_end, zs])[rowmap]
-    info[..., fe.COUNT1_END] = torch.cat([c1end, zs])[rowmap]
-    return analysis_tail(tail, spectrum, scf, info, valid_samples)
+    info[..., fe.BIG_END] = big_end.view(bsz, g_max)
+    info[..., fe.COUNT1_END] = c1end.view(bsz, g_max)
+    return analysis_tail(tail, spec_rows.view(bsz, g_max, 576), scf, info,
+                         valid_samples)
 
 
-def light_tail(tail: LightTail, spec_b, mout, inv, counts, scf, srow, sdata,
-               hrow, hdata, info, valid_samples, *, nb: int, g_max: int,
-               fused: bool = True):
-    """Sorted decode outputs → (hist (B, 12000) int32, loud_idx (B,) int32,
-    peak (B,) f32) — the JAX package's _light_tail. fused=True (the main
-    path): channel-major gathers, requantize + stereo (K2), hybrid GEMMs,
-    overlap-add, polyphase GEMMs, IIR, histogram. fused=False: the
-    host-decoded route's analysis_tail on the same decode outputs, which
-    equals that route exactly."""
+def _stage(on_stage, name: str) -> None:
+    if on_stage is not None:
+        on_stage(name)
+
+
+def light_tail(tail: LightTail, spec_rows, big_end, c1end, counts, scf,
+               srow, sdata, hrow, hdata, info, valid_samples, *, nb: int,
+               g_max: int, fused: bool = True, on_stage=None):
+    """K1's rows (dest_rows' layout for `fused`) → (hist
+    (B, 12000) int32, loud_idx (B,) int32, peak (B,) f32) — the JAX
+    package's _light_tail after its unsort and row gathers. fused=True
+    (the main path): channel-major inputs, requantize + stereo (K2),
+    hybrid GEMMs, overlap-add, polyphase GEMMs, IIR, histogram.
+    fused=False: the host-decoded route's analysis_tail on the same
+    decode, which equals that route exactly. on_stage, if given, is
+    called with a stage's name as each stage of the fused path has been
+    enqueued (for per-stage device timing)."""
     if not fused:
         return _light_tail_unfused(
-            tail, spec_b, mout, inv, counts, scf, srow, sdata, hrow, hdata,
-            info, valid_samples, nb=nb, g_max=g_max)
+            tail, spec_rows, big_end, c1end, counts, scf, srow, sdata, hrow,
+            hdata, info, valid_samples, nb=nb, g_max=g_max)
     nch = tail.n_channels
-    dev = spec_b.device
+    dev = spec_rows.device
     bsz = counts.shape[0]
     t = g_max // nch
     spec_cm, scf_cm, gmeta = channel_major_inputs(
-        spec_b, mout, inv, counts, scf, srow, sdata, hrow, hdata, info,
-        nb=nb, g_max=g_max, n_channels=nch)
+        spec_rows, big_end, c1end, counts, scf, srow, sdata, hrow, hdata,
+        info, nb=nb, g_max=g_max, n_channels=nch)
+    _stage(on_stage, "gathers")
     xr = hk.fused_requant_stereo(spec_cm, scf_cm, gmeta, tail.hybrid)
     del spec_cm, scf_cm
+    _stage(on_stage, "K2")
     z = hk.hybrid_gemm(xr, gmeta, tail.hybrid).reshape(nch, bsz, t, 1152)
     del xr
+    _stage(on_stage, "hybrid GEMMs")
 
     head = z[..., :576]
     tl_ = z[..., 576:]
@@ -476,29 +505,43 @@ def light_tail(tail: LightTail, spec_b, mout, inv, counts, scf, srow, sdata,
     pcm = torch.matmul(out18, tail.decode.synth_na)
     pcm += torch.matmul(prev18, tail.decode.synth_nb)
     del out18, prev18
+    _stage(on_stage, "overlap-add + polyphase")
 
     n = t * 576
     pcm = pcm.reshape(nch, bsz, n)
     sample_idx = torch.arange(n, device=dev)
     peak_mask = sample_idx[None, None, :] < valid_samples[None, :, None]
     peak = (pcm.abs() * peak_mask).amax(dim=(0, 2))  # (B,)
+    _stage(on_stage, "peak")
 
     x = pcm.reshape(nch * bsz, n) * SAMPLE_SCALE_16BIT
     del pcm
     filtered = tail.iir(x).reshape(nch, bsz, n).transpose(0, 1)  # (B, C, N)
+    _stage(on_stage, "IIR")
     hist = hi.histogram(filtered, valid_samples,
                         hi.window_size(tail.sample_rate))
-    return hist, hi.loudness_index(hist), peak
+    loud_idx = hi.loudness_index(hist)
+    _stage(on_stage, "histogram + index")
+    return hist, loud_idx, peak
 
 
 def analysis_core_light(tail: LightTail, scalars, buf, metab, inv, counts,
                         scf, srow, sdata, hrow, hdata, info, valid_samples,
-                        *, nb: int, g_max: int, fused: bool = True):
-    """Raw-bits batched pipeline: Huffman decode (K1) + light_tail."""
-    spec_b, mout = ek.decode_blocks(scalars, buf, metab, tail.luts)
+                        *, nb: int, g_max: int, fused: bool = True,
+                        on_stage=None):
+    """Raw-bits batched pipeline: the row map, Huffman decode (K1) into
+    the rows light_tail reads, then light_tail (on_stage: light_tail's;
+    also called after "row map" and "K1")."""
+    dest, n_rows = dest_rows(inv, counts, g_max=g_max,
+                             n_channels=tail.n_channels, channel_major=fused)
+    _stage(on_stage, "row map")
+    spec_rows, big_end, c1end = ek.decode_rows(
+        scalars, buf, metab, tail.luts, dest, n_rows)
+    _stage(on_stage, "K1")
     return light_tail(
-        tail, spec_b, mout, inv, counts, scf, srow, sdata, hrow, hdata,
-        info, valid_samples, nb=nb, g_max=g_max, fused=fused,
+        tail, spec_rows, big_end, c1end, counts, scf, srow, sdata, hrow,
+        hdata, info, valid_samples, nb=nb, g_max=g_max, fused=fused,
+        on_stage=on_stage,
     )
 
 
@@ -517,7 +560,7 @@ class Runner:
     """Batched analysis on one device, over the light route
     (analyze_unpacked_light) or the host-decoded one (analyze_unpacked)."""
 
-    def __init__(self, device):
+    def __init__(self, device="cuda"):
         self.device = resolve_device(device)
         self._tails: dict[tuple, LightTail] = {}
         # prep_s / h2d_s / device_s of the last collected batch (host

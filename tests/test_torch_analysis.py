@@ -113,6 +113,24 @@ def test_cuda_request_without_cuda_raises(clips, monkeypatch):
         device.resolve_device("meta")
 
 
+def test_entry_points_default_to_the_card(clips, monkeypatch):
+    """Without a device argument the entry points ask for the card: on a
+    machine without one they raise require_cuda's error instead of
+    running on the CPU."""
+    from mp3rgain_tpu_torch.decode import synthesis
+    from mp3rgain_tpu_torch.parallel import runner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [lambda: analysis.analyze_track_internal(clips[0]),
+             lambda: analysis.analyze_album(clips[:2]),
+             lambda: analysis.find_peak_amplitude(clips[1]),
+             lambda: synthesis.decode_file(clips[0]),
+             lambda: runner.Runner()]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA device is required"):
+            call()
+
+
 def test_precision_policy():
     device.resolve_device("cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False

@@ -58,6 +58,20 @@ def _on(dev, arrays):
     return [pr._to_device(a, dev) for a in arrays]
 
 
+def _k1_equal(args, luts, dest, n_rows):
+    """decode_rows on the card equals its plain version exactly, and a
+    second call gives the same bits; returns the rows."""
+    k0, p0 = ek.COUNT.kernel, ek.COUNT.plain
+    got = ek.decode_rows(*args, luts, dest, n_rows)
+    again = ek.decode_rows(*args, luts, dest, n_rows)
+    torch.cuda.synchronize()
+    assert (ek.COUNT.kernel, ek.COUNT.plain) == (k0 + 2, p0)
+    want = ek.decode_rows_reference(*args, luts, dest, n_rows)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, w) and torch.equal(g, a)
+    return got
+
+
 @pytest.mark.parametrize("name", sorted(STREAMS))
 def test_k1_kernel_matches_plain_and_host(name, dev):
     data = STREAMS[name]()
@@ -65,32 +79,64 @@ def test_k1_kernel_matches_plain_and_host(name, dev):
     p = ek.prepare_batch(light.md, light.meta)
     scalars, buf, meta, inv = _on(dev, (p.scalars, p.buf, p.meta, p.inv))
     luts = ek.EntropyLuts().to(dev)
-    k0, p0 = ek.COUNT.kernel, ek.COUNT.plain
-    spec_b, mout = ek.decode_blocks(scalars, buf, meta, luts)
-    torch.cuda.synchronize()
-    assert (ek.COUNT.kernel, ek.COUNT.plain) == (k0 + 1, p0)
-    ref_s, ref_m = ek.decode_blocks_reference(scalars, buf, meta, luts)
-    assert torch.equal(spec_b, ref_s) and torch.equal(mout, ref_m)
-    spec, big_end, c1end, _ = ek.unsort_blocks(spec_b, mout, inv, nb=p.nb)
+    spec, big_end, c1end = _k1_equal((scalars, buf, meta), luts,
+                                     ek.input_order_dest(inv, p.n), p.n)
     full = fe.unpack_data(data)
     valid = full.info[:, fe.VALID] == 1
-    got = spec[: p.n].cpu().numpy().astype(np.int32)
+    got = spec.cpu().numpy().astype(np.int32)
     assert not ((got != full.spectrum).any(axis=1) & valid).any()
-    assert np.array_equal(big_end[: p.n].cpu().numpy()[valid],
-                          full.info[valid, fe.BIG_END])
-    assert np.array_equal(c1end[: p.n].cpu().numpy()[valid],
-                          full.info[valid, fe.COUNT1_END])
+    assert np.array_equal(big_end.cpu().numpy()[valid], full.info[valid, fe.BIG_END])
+    assert np.array_equal(c1end.cpu().numpy()[valid], full.info[valid, fe.COUNT1_END])
+
+
+@pytest.mark.parametrize("channel_major", [False, True])
+def test_k1_rows_of_a_batch_with_padding_slots(channel_major, dev):
+    """Unequal tracks: the row map has padding slots, which read zero."""
+    datas = [STREAMS["transient"](), STREAMS["truncated"](), STREAMS["transient"]()]
+    ups = [fe.unpack_data_light_packed(d) for d in datas]
+    prep, rest, g_max = pr.prepare_batch_arrays_light(ups, 2)
+    args = _on(dev, (prep.scalars, prep.buf, prep.meta, prep.inv, rest[0]))
+    dest, n_rows = pr.dest_rows(args[3], args[4], g_max=g_max, n_channels=2,
+                                channel_major=channel_major)
+    # Stale bytes in the allocator's cache must not show through.
+    torch.full((n_rows * 576,), 7, dtype=torch.int16, device=dev)
+    spec, big_end, c1end = _k1_equal(args[:3], ek.EntropyLuts().to(dev), dest, n_rows)
+    covered = torch.zeros(n_rows, dtype=torch.bool, device=dev)
+    covered[dest[dest >= 0].long()] = True
+    assert int((~covered).sum()) == n_rows - sum(u.n for u in ups) > 0
+    assert not spec[~covered].any() and not big_end[~covered].any()
+    assert not c1end[~covered].any() and spec[covered].any()
+
+
+def test_k1_bad_lanes_leave_zero_rows(dev):
+    """Tables with one invalid 8-bit window (and one count1 window) make
+    lanes go bad mid-row; the kernel must zero what they had written."""
+    light = fe.unpack_data_light(STREAMS["transient"]())
+    p = ek.prepare_batch(light.md, light.meta)
+    scalars, buf, meta, inv = _on(dev, (p.scalars, p.buf, p.meta, p.inv))
+    luts = ek.EntropyLuts()
+    luts.lut_a[1:, 0b10110011, 1] |= 3 << 4
+    luts.lut_ct[:, 0b101100, 1] |= 3 << 4
+    luts = luts.to(dev)
+    _, mout = ek.decode_blocks_reference(scalars, buf, meta, luts)
+    assert int(mout[:, 2].sum()) > 0
+    spec, big_end, c1end = _k1_equal((scalars, buf, meta), luts,
+                                     ek.input_order_dest(inv, p.n), p.n)
+    bad = mout[:, 2].reshape(-1)[inv[: p.n].long()] == 1
+    assert not spec[bad].any() and not c1end[bad].any() and spec[~bad].any()
 
 
 @pytest.mark.parametrize("name", ["mono_22k", "transient", "craft_intensity",
-                                  "craft_lsf_intensity"])
+                                  "craft_lsf_intensity", "craft_mixed_block"])
 def test_k2_kernel_matches_plain(name, dev):
     u = fe.unpack_data_light_packed(STREAMS[name]())
     prep, rest, g_max = pr.prepare_batch_arrays_light([u], u.n_channels)
     args = _on(dev, (prep.scalars, prep.buf, prep.meta, prep.inv) + tuple(rest))
     tail = pr.LightTail(u.sample_rate, u.n_channels).to(dev)
-    spec_b, mout = ek.decode_blocks(*args[:3], tail.luts)
-    cm = pr.channel_major_inputs(spec_b, mout, *args[3:11], nb=prep.nb,
+    dest, n_rows = pr.dest_rows(args[3], args[4], g_max=g_max,
+                                n_channels=u.n_channels, channel_major=True)
+    rows = ek.decode_rows(*args[:3], tail.luts, dest, n_rows)
+    cm = pr.channel_major_inputs(*rows, *args[4:11], nb=prep.nb,
                                  g_max=g_max, n_channels=u.n_channels)
     k0 = hk.COUNT.kernel
     got = hk.fused_requant_stereo(*cm, tail.hybrid)
@@ -100,6 +146,37 @@ def test_k2_kernel_matches_plain(name, dev):
     scale = want.abs().max().item()
     assert scale > 0
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("nch,rows,sr_row", [(1, 1, 4), (1, 1001, 8), (2, 1, 0),
+                                             (2, 37, 3), (2, 1001, 5)])
+def test_k2_kernel_matches_plain_on_random_rows(nch, rows, sr_row, dev):
+    """Random fields cover every class, M/S, MPEG-1 and LSF intensity
+    (with both intensity scales and is_pos 7) at row counts that fill no
+    whole block; LSF tables for the LSF rates."""
+    rng = np.random.default_rng(rows * 10 + nch)
+    spec = rng.integers(-40, 41, (nch, rows, 576))
+    spec[..., :4] = rng.integers(-8206, 8207, (nch, rows, 4))
+    spec[..., 400:] = 0
+    scf = rng.integers(0, 16, (nch, rows, 64))
+    scf[..., 5] = 7
+    gm = np.zeros((nch, rows, hk.GM_N), np.int64)
+    gm[..., hk.GM_GG] = rng.integers(100, 256, (nch, rows))
+    for f, hi_ in ((hk.GM_SFS, 2), (hk.GM_PRE, 2), (hk.GM_SBG0, 8), (hk.GM_SBG1, 8),
+                   (hk.GM_SBG2, 8), (hk.GM_BT, 4), (hk.GM_CLS, 3), (hk.GM_MS, 2),
+                   (hk.GM_IS, 2), (hk.GM_LSF, 2), (hk.GM_ISC, 2)):
+        gm[..., f] = rng.integers(0, hi_, (nch, rows))
+    gm[..., hk.GM_RZO] = rng.integers(0, 577, (nch, rows))
+    t = [torch.from_numpy(a.astype(d)).to(dev)
+         for a, d in ((spec, np.int16), (scf, np.int8), (gm, np.int32))]
+    tables = hk.HybridTables(sr_row).to(dev)
+    got = hk.fused_requant_stereo(*t, tables)
+    want = hk.fused_requant_stereo_reference(*t, tables)
+    scale = want.abs().max().item()
+    assert scale > 0
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * scale)
+    empty = hk.fused_requant_stereo(*(x[:, :0] for x in t), tables)
+    assert empty.shape == (nch, 0, 576)
 
 
 def test_light_path_on_card_matches_cpu(dev):
@@ -125,9 +202,10 @@ def test_failed_kernel_library_raises(dev, monkeypatch):
     p = ek.prepare_batch(*(lambda lt: (lt.md, lt.meta))(
         fe.unpack_data_light(craft.craft_count1b_stream())))
     before = ek.COUNT.plain
+    args = _on(dev, (p.scalars, p.buf, p.meta, p.inv))
     with pytest.raises(RuntimeError, match="build failed"):
-        ek.decode_blocks(*_on(dev, (p.scalars, p.buf, p.meta)),
-                         ek.EntropyLuts().to(dev))
+        ek.decode_rows(*args[:3], ek.EntropyLuts().to(dev),
+                       ek.input_order_dest(args[3], p.n), p.n)
     assert ek.COUNT.plain == before
 
 

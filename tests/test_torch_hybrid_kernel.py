@@ -6,7 +6,7 @@ inputs within rtol 1e-5 and atol 1e-6·max|ref| — XLA's and ATen's
 exp2/log2/tan differ by ulps. Inputs come from real streams (joint
 stereo, mono MPEG-2, short/mixed blocks, MPEG-1 and LSF intensity)
 through the port's decode and gathers. tests/test_torch_cuda.py holds
-the Triton kernel to its plain version on a card.
+the CUDA kernel to its plain version on a card.
 """
 
 import numpy as np
@@ -63,9 +63,11 @@ def k2_inputs(datas):
     host = (prep.scalars, prep.buf, prep.meta, prep.inv) + tuple(rest)
     dev = [pr._to_device(a, torch.device("cpu")) for a in host]
     bufpool.give(prep.buf, prep.meta, rest[1], rest[6])
-    spec_b, mout = ek.decode_blocks(*dev[:3], ek.EntropyLuts())
+    dest, n_rows = pr.dest_rows(dev[3], dev[4], g_max=g_max, n_channels=nch,
+                                channel_major=True)
+    rows = ek.decode_rows(*dev[:3], ek.EntropyLuts(), dest, n_rows)
     spec, scf, gmeta = pr.channel_major_inputs(
-        spec_b, mout, *dev[3:11], nb=prep.nb, g_max=g_max, n_channels=nch)
+        *rows, *dev[4:11], nb=prep.nb, g_max=g_max, n_channels=nch)
     return spec, scf, gmeta, SR_ROW[sr]
 
 
@@ -131,7 +133,7 @@ def test_hybrid_gemm_matches_jax():
 
 
 def test_ratio_table_matches_formula():
-    """The Triton kernel's intensity-ratio table holds the plain version's
+    """The CUDA kernel's intensity-ratio table holds the plain version's
     per-element formula at every integer is_pos."""
     table = torch.from_numpy(hk.is_ratio_table())
     for lsf in (0, 1):
@@ -141,6 +143,45 @@ def test_ratio_table_matches_formula():
                                    torch.tensor(bool(isc)))
             assert torch.equal(table[lsf, isc, :, 0], kl)
             assert torch.equal(table[lsf, isc, :, 1], kr)
+
+
+def _field(words: np.ndarray, field) -> np.ndarray:
+    shift, bits = field
+    return (words >> shift) & ((1 << bits) - 1)
+
+
+@pytest.mark.parametrize("sr_row", range(9))
+def test_class_words_unpack_to_jax_consts(sr_row):
+    """The kernel's one word per (class, sample) unpacks bit-exactly to the
+    JAX package's per-class tables: slot and window of the one-hot
+    expansions (none = all-zero column), pretab, band start, short flag."""
+    words = hk.HybridTables(sr_row).class_words.numpy()
+    assert words.shape == (3, 576) and words.dtype == np.int32
+    assert 0 <= words.min() and words.max() < (1 << 22)
+    slot, win, pretab, band_start, short = jhk._consts(sr_row)
+    for c in range(3):
+        for field, onehot in ((hk.CW_SLOT, slot[c]), (hk.CW_WIN, win[c])):
+            idx = _field(words[c], field)  # index + 1, 0 = none
+            rebuilt = np.zeros_like(onehot)
+            has = idx > 0
+            rebuilt[idx[has] - 1, np.nonzero(has)[0]] = 1
+            assert np.array_equal(rebuilt, onehot), (sr_row, c, field)
+        for field, want in ((hk.CW_PRETAB, pretab[c]),
+                            (hk.CW_BAND_START, band_start[c]),
+                            (hk.CW_SHORT, short[c])):
+            assert np.array_equal(_field(words[c], field).astype(want.dtype), want), (
+                sr_row, c, field)
+
+
+def test_class_words_reject_values_that_do_not_fit():
+    slot, win, pretab, band_start, short = hk._consts(0)
+    args = [np.full((3, 576), -1), np.full((3, 576), -1), pretab, band_start, short]
+    hk.pack_class_words(*args)
+    for i, bad in ((0, 127), (1, 3), (2, 4.0), (3, 1024.0), (4, 0.5)):
+        wrong = list(args)
+        wrong[i] = np.full((3, 576), bad)
+        with pytest.raises(ValueError, match="does not fit"):
+            hk.pack_class_words(*wrong)
 
 
 def test_wrapper_rejects_bad_inputs():

@@ -114,13 +114,54 @@ def test_light_tail_unfused_matches_jax(batches, name):
     args = [pr._to_device(a, cpu) for a in host]
     bufpool.give(prep.buf, prep.meta, rest[1], rest[6])
     tail = pr.LightTail(sr, nch)
-    spec_b, mout = ek.decode_blocks(*args[:3], tail.luts)
+    dest, n_rows = pr.dest_rows(args[3], args[4], g_max=g_max, n_channels=nch,
+                                channel_major=False)
+    rows = ek.decode_rows(*args[:3], tail.luts, dest, n_rows)
     counts0 = (hk.COUNT.plain, cc.COUNT.plain)
-    hist, loud_idx, peak = pr.light_tail(tail, spec_b, mout, *args[3:],
+    hist, loud_idx, peak = pr.light_tail(tail, *rows, *args[4:],
                                          nb=prep.nb, g_max=g_max, fused=False)
     assert (hk.COUNT.plain, cc.COUNT.plain) == (counts0[0], counts0[1] + 1)
     _assert_close_to_jax(hist.numpy(), loud_idx.numpy(), peak.numpy(),
                          jax_out[False], len(ups))
+
+
+def test_main_path_stages_and_no_unsort_after_k1(batches, monkeypatch):
+    """After K1 (decode_rows) the main path never unsorts or re-gathers
+    the spectra: K1's channel-major rows go to K2 as they are. Also the
+    stage names analysis_core_light reports, in order."""
+    ups, sr, nch, _ = batches["stereo_joint_44k"]
+    prep, rest, g_max = pr.prepare_batch_arrays_light(ups, nch, 1)
+    args = [pr._to_device(a, torch.device("cpu"))
+            for a in (prep.scalars, prep.buf, prep.meta, prep.inv) + tuple(rest)]
+    bufpool.give(prep.buf, prep.meta, rest[1], rest[6])
+    tail = pr.LightTail(sr, nch)
+    seen = {}
+    real_decode, real_k2 = ek.decode_rows, hk.fused_requant_stereo
+
+    def decode_rows(*a):
+        out = real_decode(*a)  # the plain version unsorts inside K1's contract
+
+        def boom(*_a, **_k):
+            raise AssertionError("unsort after K1")
+
+        monkeypatch.setattr(ek, "unsort_blocks", boom)
+        monkeypatch.setattr(ek, "decode_blocks_reference", boom)
+        seen["rows"] = out[0]
+        return out
+
+    def k2(spec, *rest_):
+        seen["k2_spec"] = spec
+        return real_k2(spec, *rest_)
+
+    monkeypatch.setattr(ek, "decode_rows", decode_rows)
+    monkeypatch.setattr(hk, "fused_requant_stereo", k2)
+    stages = []
+    pr.analysis_core_light(tail, *args, nb=prep.nb, g_max=g_max, on_stage=stages.append)
+    assert stages == ["row map", "K1", "gathers", "K2", "hybrid GEMMs",
+                      "overlap-add + polyphase", "peak", "IIR", "histogram + index"]
+    # K2 reads K1's rows in place: a view of the same storage.
+    assert seen["k2_spec"].data_ptr() == seen["rows"].data_ptr()
+    assert seen["k2_spec"].shape == (nch, seen["rows"].shape[0] // nch, 576)
 
 
 @pytest.mark.parametrize("name", sorted(BATCHES))
