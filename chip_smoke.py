@@ -19,15 +19,22 @@ port's two routes over 64 copies of a 60 s, 44.1 kHz joint-stereo
 before it and read just after; the light device phase split by stage
 (CUDA events, median of 3); then the unfused light tail against the
 host-decoded route (exact), decode_file and the analysis entry points on
-committed clips. Every check raises on failure; there is no CPU branch.
+committed clips; then the library scan, this port's main path for a
+library: scan.scan_files over 514 files (384 copies of the bench track, 64
+of a 3 s transient clip, 64 of a 3 s 22.05 kHz mono clip, one file of
+seeded random bytes, one ADTS file) on the pipelined Runner, every copy
+held to its single-track result, the K1/K2 launches counted per device
+batch, the resume from its manifest, and cli.main -a over 128 of the
+files. Every check raises on failure; there is no CPU branch.
 Output, one phase per line:
 
   device / nvidia-smi name and power limit / build seconds and K1/K2/K3
   registers, shared memory and spills / K1, K2 and K3 agreement, times
   and bounds / light slice launch counts, CPU agreement / light stage
   split / heavy slice launch counts, CPU and light agreement, light
-  unfused == heavy / decode_file / entry-point gains / times / a JSON
-  line of per-kernel results /
+  unfused == heavy / decode_file / entry-point gains / library scan /
+  times / a JSON line of per-kernel results (K1/K2 launches from the
+  library scan) /
   last line {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero
@@ -71,6 +78,222 @@ def bound_of(n_bytes: float, flops: float = 0.0) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+LIBRARY_SEED = 5
+LIBRARY_COPIES = {"bench": 384, "transient": 64, "mono": 64}
+
+
+def _adts_stream(frames: int = 3, payload: int = 200) -> bytes:
+    """ADTS frames (AAC-LC, 44.1 kHz, stereo headers, zero payloads): a file
+    the scan must route to the AAC path and fail there."""
+    n = 7 + payload
+    head = bytes([0xFF, 0xF1, 0x50, 0x80 | ((n >> 11) & 3), (n >> 3) & 0xFF,
+                  ((n & 7) << 5) | 0x1F, 0xFC])
+    return (head + bytes(payload)) * frames
+
+
+def _union_ms(intervals) -> float:
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def library_phase(dev, card, bench_u, bench_loud, bench_peak, bench_windows, clips):
+    """scan_files over a 514-file library on the card (384 copies of the
+    bench track, 64 of the 3 s transient clip, 64 of the 3 s 22.05 kHz mono
+    clip, as symlinks; a file of seeded random bytes; an ADTS file), its
+    resume from the manifest, and cli.main -a over 128 of the files.
+    Returns the scan's K1/K2 launch counts."""
+    import contextlib
+    import io
+    import shutil
+    import statistics
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from mp3rgain_tpu_torch import analysis, cli, scan
+    from mp3rgain_tpu_torch.decode import class_core as cc
+    from mp3rgain_tpu_torch.decode import entropy_kernel as ek
+    from mp3rgain_tpu_torch.decode import hybrid_kernel as hk
+    from mp3rgain_tpu_torch.ops import histogram as hi
+    from mp3rgain_tpu_torch.parallel import runner as pr
+
+    bench_path, mono_path, transient_path = clips
+    root = tempfile.mkdtemp(prefix="mp3rgain-library-")
+    try:
+        paths = []
+        for kind, src in (("bench", bench_path), ("transient", transient_path),
+                          ("mono", mono_path)):
+            for i in range(LIBRARY_COPIES[kind]):
+                paths.append(os.path.join(root, f"{kind}_{i:03d}.mp3"))
+                os.symlink(src, paths[-1])
+        noise = os.path.join(root, "noise.mp3")
+        with open(noise, "wb") as f:
+            f.write(np.random.default_rng(LIBRARY_SEED).integers(
+                0, 256, 1 << 16, dtype=np.uint8).tobytes())
+        adts = os.path.join(root, "stream.aac")
+        with open(adts, "wb") as f:
+            f.write(_adts_stream())
+        paths += [noise, adts]
+        manifest = os.path.join(root, "scan.json")
+
+        runner = pr.Runner(dev)
+        t0 = time.perf_counter()
+        for fmt in ((44100, 2), (22050, 1)):
+            runner.tail(*fmt)
+        torch.cuda.synchronize()
+        tails_s = time.perf_counter() - t0
+
+        torch.cuda.reset_peak_memory_stats()
+        for c in (ek.COUNT, hk.COUNT, cc.COUNT):
+            c.reset()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                res = scan.scan_files(paths, manifest_path=manifest, runner=runner)
+                wall = time.perf_counter() - t0
+                n_scan = len(caught)
+                # A control: one deliberate sync on another thread is seen.
+                ctl = threading.Thread(target=lambda: torch.zeros(1, device=dev).item())
+                ctl.start()
+                ctl.join()
+                control_seen = len(caught) > n_scan
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launches = {"entropy_decode_rows": ek.COUNT.kernel,
+                    "requant_stereo": hk.COUNT.kernel}
+        plain = ek.COUNT.plain + hk.COUNT.plain + cc.COUNT.plain
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        timings = list(runner.timings)
+        busy = list(runner.busy_ms)
+        syncs: dict[str, int] = {}
+        for w in caught[:n_scan]:
+            where = f"{os.path.basename(w.filename)}:{w.lineno}"
+            syncs[where] = syncs.get(where, 0) + 1
+
+        # Outcomes: 512 tracks, and the two bad files failed with their errors.
+        n_tracks = sum(LIBRARY_COPIES.values())
+        ok = [p for p in paths if not isinstance(res.results[p], Exception)]
+        check(len(ok) == n_tracks and len(res.results) == len(paths),
+              f"{len(ok)} of {n_tracks} tracks ok")
+        err_noise, err_adts = res.results[noise], res.results[adts]
+        check(isinstance(err_noise, RuntimeError) and "No valid MP3 frames" in str(err_noise),
+              f"random bytes fail as no MP3 ({err_noise!r})")
+        check(isinstance(err_adts, NotImplementedError) and "item 10" in str(err_adts),
+              f"the ADTS file fails as AAC, not yet ported ({err_adts!r})")
+        n_batches = len(timings)
+        check(launches["entropy_decode_rows"] == n_batches
+              and launches["requant_stereo"] == n_batches,
+              f"K1 and K2 launched once per device batch ({launches}, {n_batches} batches)")
+        check(plain == 0, f"no plain-version calls on CUDA ({plain})")
+
+        # Every copy against its reference.
+        bench_idx = round(bench_loud * 100) + 2000
+        refs = {"bench": (bench_windows, bench_idx, bench_peak)}
+        for kind, clip in (("transient", transient_path), ("mono", mono_path)):
+            r = analysis.analyze_track_internal(clip, device=dev)
+            refs[kind] = (int(r.histogram.sum()), round(r.result.loudness_db * 100) + 2000,
+                          r.result.peak)
+        worst = {"index": 0, "peak_rel": 0.0}
+        for p in ok:
+            windows, idx, peak = refs[os.path.basename(p).split("_")[0]]
+            got = res.results[p]
+            g_idx = round(got.loudness_db * 100) + 2000
+            check(int(res.histograms[p].sum()) == windows, f"{p} window count")
+            check(abs(g_idx - idx) <= 2, f"{p} index {g_idx} vs {idx}")
+            check(bool(np.isclose(got.peak, peak, rtol=2e-4, atol=1e-6)),
+                  f"{p} peak {got.peak} vs {peak}")
+            worst["index"] = max(worst["index"], abs(g_idx - idx))
+            worst["peak_rel"] = max(worst["peak_rel"], abs(got.peak / peak - 1))
+        loud, gain, apeak = scan.album_union(res, paths)
+        total = sum(res.histograms[p].astype(np.uint64) for p in ok)
+        want = hi.loudness_from_histogram(total)
+        check(loud == want and apeak == max(res.results[p].peak for p in ok),
+              f"album_union equals the host sum ({loud} vs {want})")
+
+        # The same scan again resumes every track from the manifest.
+        n_before = len(runner.timings)
+        k1_before = ek.COUNT.kernel
+        again = scan.scan_files(paths, manifest_path=manifest, runner=runner)
+        check(again.resumed == n_tracks, f"resumed {again.resumed} of {n_tracks}")
+        check(len(runner.timings) == n_before and ek.COUNT.kernel == k1_before,
+              "no device batch on resume")
+        for p in ok:
+            a, b = res.results[p], again.results[p]
+            check((a.loudness_db, a.gain_db, a.peak, a.sample_rate) ==
+                  (b.loudness_db, b.gain_db, b.peak, b.sample_rate)
+                  and np.array_equal(res.histograms[p], again.histograms[p]),
+                  f"{p} resumes identical")
+
+        # The prep pool against one prep thread (the uploader alone keeping
+        # pace), scans of the same files in turns.
+        default = pr.PREP_THREADS
+        turns: dict[int, list[float]] = {1: [], default: []}
+        try:
+            for n in (1, default, default, 1):
+                pr.PREP_THREADS = n
+                t0 = time.perf_counter()
+                pr.analyze_library(paths, runner=runner)
+                turns[n].append(time.perf_counter() - t0)
+        finally:
+            pr.PREP_THREADS = default
+
+        # The CLI's album path over 128 of the files, in this process.
+        by_kind = {k: [p for p in ok if os.path.basename(p).startswith(k)]
+                   for k in LIBRARY_COPIES}
+        album_files = by_kind["bench"][:64] + by_kind["transient"][:32] + by_kind["mono"][:32]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["-a", "--dry-run", "--batch", "-o", "json", "--manifest",
+                           os.path.join(root, "cli.json"), *album_files])
+        check(rc == 0, f"cli -a exit code {rc}")
+        doc = json.loads(out.getvalue())
+        _, want_gain, _ = scan.album_union(res, album_files)
+        check(len(doc["files"]) == len(album_files)
+              and abs(doc["album"]["gain_db"] - want_gain) <= 0.02,
+              f"cli album gain {doc['album']['gain_db']} vs album_union {want_gain}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    audio_h = res.audio_seconds / 3600.0
+    med = {k: statistics.median(t[k] for t in timings) for k in ("prep_s", "h2d_s", "device_ms")}
+    serial = sum(t["prep_s"] + t["h2d_s"] + t["device_ms"] / 1e3 for t in timings)
+    busy_share = _union_ms(busy) / (wall * 1e3)
+    findings = ("none" if not syncs else
+                "; ".join(f"{k} x{v}" for k, v in sorted(syncs.items())))
+    print(f"library {card}: scan_files over {len(paths)} files ({len(ok)} tracks, "
+          f"2 failed as expected), {n_batches} device batches, {audio_h:.3f} audio-hours "
+          f"in {wall:.3f} s: real-time factor {res.audio_seconds / wall:.0f}x, "
+          f"{audio_h / wall:.3f} audio-hours/s; per batch (median) prep "
+          f"{med['prep_s']:.4f} s, staging and upload {med['h2d_s']:.4f} s, device "
+          f"{med['device_ms']:.3f} ms; device busy {busy_share:.1%} of the wall; serial "
+          f"sum of prep + upload + device {serial:.3f} s vs wall {wall:.3f} s "
+          f"(overlap {serial / wall:.2f}x); peak device memory {peak_gb:.3f} GB; "
+          f"os.cpu_count() {os.cpu_count()}; LightTails built before in {tails_s:.3f} s; "
+          f"sync-debug findings during the scan: {findings} (a deliberate .item() on "
+          f"another thread {'was' if control_seen else 'was NOT'} detected); launches {launches}, plain "
+          f"calls {plain}; worst index diff {worst['index']}, worst peak rel diff "
+          f"{worst['peak_rel']:.2e}; resume: {again.resumed} resumed, 0 batches; cli -a "
+          f"over {len(album_files)} files: album gain {doc['album']['gain_db']:.2f} dB vs "
+          f"album_union {want_gain:.2f} dB", flush=True)
+    print(f"library prep threads {card}: analyze_library over the same {len(paths)} "
+          f"files in turns: " + "; ".join(
+              f"{n} prep thread{'s' if n > 1 else ''} (walk pool "
+              f"{max((os.cpu_count() or 1) - n, 1)}) {', '.join(f'{t:.3f}' for t in ts)} s"
+              for n, ts in turns.items()), flush=True)
+    return {"launches": launches}
 
 
 def main() -> None:
@@ -362,7 +585,8 @@ def main() -> None:
 
     # --- 7. the light main path at full size -----------------------------------
     runner = pr.Runner(dev)
-    runner.analyze_unpacked_light([u] * BATCH_TRACKS, 44100, 2)  # warm-up
+    for _ in range(2):  # warm-up, once per pinned staging slot
+        runner.analyze_unpacked_light([u] * BATCH_TRACKS, 44100, 2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ek.COUNT.reset()
@@ -390,7 +614,7 @@ def main() -> None:
     check(hist.shape == (BATCH_TRACKS, 12000), "histogram shape")
     check(bool(np.isfinite(louds).all() and np.isfinite(peaks).all()),
           "finite loudness and peak")
-    win_counts = hist.sum(dim=1).cpu().numpy()
+    win_counts = hist.sum(axis=1)
 
     cpu_hist, cpu_louds, cpu_peaks = pr.Runner("cpu").analyze_unpacked_light(
         [u], 44100, 2)
@@ -439,15 +663,15 @@ def main() -> None:
           + f"; sum {total_ms:.3f} ms", flush=True)
 
     # --- 8. the host-decoded route at full size ---------------------------------
-    runner.analyze_unpacked([full] * BATCH_TRACKS, 44100, 2)  # warm-up
+    for _ in range(2):  # warm-up, once per pinned staging slot
+        runner.analyze_unpacked([full] * BATCH_TRACKS, 44100, 2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ek.COUNT.reset()
     hk.COUNT.reset()
     cc.COUNT.reset()
     t0 = time.perf_counter()
-    handle = runner.dispatch_heavy([full] * BATCH_TRACKS, 44100, 2)
-    h_hist, h_louds, h_peaks = runner.collect(handle)
+    h_hist, h_louds, h_peaks = runner.analyze_unpacked([full] * BATCH_TRACKS, 44100, 2)
     h_wall_s = time.perf_counter() - t0
     h_counts = {"class_core_gemm": cc.COUNT.kernel}
     h_plain = ek.COUNT.plain + hk.COUNT.plain + cc.COUNT.plain
@@ -458,7 +682,7 @@ def main() -> None:
     check(h_hist.shape == (BATCH_TRACKS, 12000), "heavy histogram shape")
     check(bool(np.isfinite(h_louds).all() and np.isfinite(h_peaks).all()),
           "finite heavy loudness and peak")
-    h_win = h_hist.sum(dim=1).cpu().numpy()
+    h_win = h_hist.sum(axis=1)
     c_hist, c_louds, c_peaks = pr.Runner("cpu").analyze_unpacked([full], 44100, 2)
     h_idx = np.array([round(v * 100) + 2000 for v in h_louds])
     c_idx = round(c_louds[0] * 100) + 2000
@@ -485,12 +709,13 @@ def main() -> None:
     lt = pr.analysis_core_light(runner.tail(44100, 2), *batch, nb=prep.nb,
                                 g_max=g_lt, fused=False)
     del batch
-    for a, b, what in zip(lt, handle[:3], ("hist", "loud_idx", "peak")):
-        check(a.shape == b.shape and torch.equal(a, b),
+    lt = [t[:BATCH_TRACKS].cpu().numpy() for t in lt]
+    for a, b, what in zip(lt, (h_hist, h_idx, h_peaks), ("hist", "loud_idx", "peak")):
+        check(a.shape == b.shape and bool((a == b).all()),
               f"light_tail(fused=False) {what} equals the heavy route exactly")
     print(f"light unfused == heavy on {dev}: hist, loud_idx and peak exactly equal "
-          f"over {BATCH_TRACKS} tracks (batch of {lt[0].shape[0]})", flush=True)
-    del lt, handle
+          f"over {BATCH_TRACKS} tracks", flush=True)
+    del lt
     torch.cuda.empty_cache()
 
     dec = []
@@ -519,20 +744,25 @@ def main() -> None:
           f"{album.album_gain_db:.2f} dB, album peak {album.album_peak:.4f}",
           flush=True)
 
-    # --- 9. times ---------------------------------------------------------------
-    split = timing["prep_s"] + timing["h2d_s"] + timing["device_s"]
-    h_split = h_timing["prep_s"] + h_timing["h2d_s"] + h_timing["device_s"]
+    # --- 9. the library scan -----------------------------------------------------
+    lib = library_phase(dev, card, u, louds[0], peaks[0], int(win_counts[0]), clips)
+
+    # --- 10. times ---------------------------------------------------------------
+    dev_s = timing["device_ms"] / 1e3
+    h_dev_s = h_timing["device_ms"] / 1e3
+    split = timing["prep_s"] + timing["h2d_s"] + dev_s
+    h_split = h_timing["prep_s"] + h_timing["h2d_s"] + h_dev_s
     print(f"times {card}: slice wall {wall_s:.3f} s = host prep "
-          f"{timing['prep_s']:.3f} s + h2d {timing['h2d_s']:.3f} s + device "
-          f"{timing['device_s']:.3f} s (sum {split:.3f}); {audio_s:.0f} s of audio, "
+          f"{timing['prep_s']:.3f} s + staging and upload {timing['h2d_s']:.3f} s + device "
+          f"{dev_s:.3f} s (sum {split:.3f}); {audio_s:.0f} s of audio, "
           f"real-time factor {audio_s / wall_s:.0f}x; device-only "
-          f"{audio_s / timing['device_s']:.0f}x; peak device memory "
+          f"{audio_s / dev_s:.0f}x; peak device memory "
           f"{peak_gb:.3f} GB; K1 {k1_ms:.3f} ms vs plain {k1_plain_ms:.1f} ms; "
           f"K2 {k2_ms:.3f} ms vs plain {k2_plain_ms:.3f} ms", flush=True)
     print(f"times {card}: heavy slice wall {h_wall_s:.3f} s = host prep "
-          f"{h_timing['prep_s']:.3f} s + h2d {h_timing['h2d_s']:.3f} s + device "
-          f"{h_timing['device_s']:.3f} s (sum {h_split:.3f}); real-time factor "
-          f"{audio_s / h_wall_s:.0f}x; device-only {audio_s / h_timing['device_s']:.0f}x; "
+          f"{h_timing['prep_s']:.3f} s + staging and upload {h_timing['h2d_s']:.3f} s + "
+          f"device {h_dev_s:.3f} s (sum {h_split:.3f}); real-time factor "
+          f"{audio_s / h_wall_s:.0f}x; device-only {audio_s / h_dev_s:.0f}x; "
           f"peak device memory {h_peak_gb:.2f} GB; K3 heavy shape {k3_ms:.3f} ms vs "
           f"plain {k3_plain_ms:.3f} ms, library {k3_lib_ms:.3f} ms; K3 probe shape "
           f"{k3p_ms:.3f} ms vs plain {k3p_plain_ms:.3f} ms, library {k3p_lib_ms:.3f} ms",
@@ -542,13 +772,15 @@ def main() -> None:
         {"name": "entropy_decode_rows", "route": "cuda",
          "source": "mp3rgain_tpu_torch/csrc/entropy_decode.cu",
          "replaces": "mp3rgain_tpu/decode/entropy_kernel.py:154",
-         "launches": counts["entropy_decode_rows"], "max_abs_err": k1_err,
+         "launches": lib["launches"]["entropy_decode_rows"],
+         "light_slice_launches": counts["entropy_decode_rows"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None},
         {"name": "requant_stereo", "route": "cuda",
          "source": "mp3rgain_tpu_torch/csrc/requant_stereo.cu",
          "replaces": "mp3rgain_tpu/decode/hybrid_kernel.py:163",
-         "launches": counts["requant_stereo"], "max_abs_err": k2_err,
+         "launches": lib["launches"]["requant_stereo"],
+         "light_slice_launches": counts["requant_stereo"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None},
         {"name": "class_core_gemm", "route": "cuda",

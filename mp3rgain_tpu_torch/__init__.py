@@ -17,9 +17,14 @@ crafted streams) is copied into this package, which imports neither
 mp3rgain_tpu nor jax; tests/test_torch_host_copies.py holds the copies
 equal to their originals.
 
-Entry points: analysis.analyze_track_internal / analyze_album /
-find_peak_amplitude, parallel.runner.Runner.analyze_unpacked_light and
-.analyze_unpacked, and decode.synthesis.decode_file, each on the CUDA
-card unless given device="cpu"; python -m
-mp3rgain_tpu_torch.tools.hk_dotprobe times K3.
+Entry points: the mp3gain-compatible CLI (python -m
+mp3rgain_tpu_torch.cli, a copy of the JAX package's, with its host
+modules: bitstream, ape, id3v2, mp4meta, utils); scan.scan_files (library
+scans with a resumable manifest) over parallel.runner.analyze_library;
+the replaygain API; analysis.analyze_track_internal / analyze_album /
+find_peak_amplitude; parallel.runner.Runner.analyze_unpacked_light and
+.analyze_unpacked; and decode.synthesis.decode_file, each on the CUDA
+card unless given device="cpu". python -m
+mp3rgain_tpu_torch.tools.hk_dotprobe times K3, and
+mp3rgain_tpu_torch.tools.host_probe the scan's host side.
 """

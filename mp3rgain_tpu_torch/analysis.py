@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 from .decode import frontend
@@ -32,9 +33,9 @@ class AnalysisError(RuntimeError):
 
 
 class TrackAnalysisInternal:
-    def __init__(self, result: ReplayGainResult, hist: torch.Tensor):
+    def __init__(self, result: ReplayGainResult, hist: np.ndarray):
         self.result = result
-        self.histogram = hist  # (12000,) int32, on the analysis device
+        self.histogram = hist  # (12000,) int32, read back to the host
 
 
 def _sniff_adts(head: bytes) -> bool:
@@ -79,27 +80,29 @@ def _require_mp3(path) -> None:
         )
 
 
-def _analyze_mp3(path, device):
-    """(hist (12000,) on device, loudness dB, peak, sample rate)."""
+def _analyze_mp3(path, runner: Runner):
+    """(hist (12000,) on the host, loudness dB, peak, sample rate)."""
     with open(path, "rb") as f:
         u = frontend.unpack_data_light_packed(f.read())
     if u.n == 0:
         raise AnalysisError("No valid MP3 frames found")
-    hist, louds, peaks = Runner(device).analyze_unpacked_light(
+    hist, louds, peaks = runner.analyze_unpacked_light(
         [u], u.sample_rate, u.n_channels)
     return hist[0], float(louds[0]), float(peaks[0]), u.sample_rate
 
 
 def analyze_track_internal(path: os.PathLike | str,
                            track_index: int | None = None, *,
-                           device="cuda") -> TrackAnalysisInternal:
+                           device="cuda", runner: Runner | None = None
+                           ) -> TrackAnalysisInternal:
+    """One track on `runner` (a new Runner on `device` when None)."""
     _require_mp3(path)
     # MP3 streams have exactly one audio track.
     if track_index not in (None, 0):
         raise AnalysisError(
             f"Track index {track_index} out of range (file has 1 audio track(s))"
         )
-    hist, loudness_db, peak, sr = _analyze_mp3(path, device)
+    hist, loudness_db, peak, sr = _analyze_mp3(path, runner or Runner(device))
     result = ReplayGainResult(
         loudness_db=loudness_db,
         gain_db=PINK_REF - loudness_db,
@@ -112,17 +115,19 @@ def analyze_track_internal(path: os.PathLike | str,
 
 def analyze_album(files, track_index: int | None = None, *,
                   device="cuda") -> AlbumGainResult:
-    """Album analysis: union histogram (duration-weighted), peak max."""
+    """Album analysis: union histogram (duration-weighted), peak max. The
+    tracks run one by one through one Runner, which keeps one LightTail
+    per format."""
+    runner = Runner(device)
     tracks = []
     album_peak = 0.0
-    album_hist = None
+    album_hist = np.zeros(hi.HISTOGRAM_SIZE, np.int64)
     for f in files:
-        internal = analyze_track_internal(f, track_index, device=device)
+        internal = analyze_track_internal(f, track_index, runner=runner)
         album_peak = max(album_peak, internal.result.peak)
-        h = internal.histogram
-        album_hist = h if album_hist is None else album_hist + h
+        album_hist += internal.histogram
         tracks.append(internal.result)
-    idx = int(hi.loudness_index(album_hist[None])[0])
+    idx = int(hi.loudness_index(torch.from_numpy(album_hist)[None])[0])
     album_loudness = hi.index_to_loudness(idx)
     return AlbumGainResult(
         tracks=tracks,
@@ -136,6 +141,6 @@ def find_peak_amplitude(path: os.PathLike | str, *,
                         device="cuda") -> PeakAmplitudeResult:
     """True decoded peak over all channels (unclipped, like mp3gain)."""
     _require_mp3(path)
-    _, _, peak, sr = _analyze_mp3(path, device)
+    _, _, peak, sr = _analyze_mp3(path, Runner(device))
     return PeakAmplitudeResult(peak=peak, peak_pcm=peak * SAMPLE_SCALE_16BIT,
                                sample_rate=sr)

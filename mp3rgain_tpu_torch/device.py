@@ -20,6 +20,8 @@ from dataclasses import dataclass
 
 import torch
 
+from .replaygain import DeviceUnavailable
+
 
 def apply_precision_policy() -> None:
     """Full-f32 matmuls and convolutions (no TF32), set explicitly."""
@@ -29,9 +31,10 @@ def apply_precision_policy() -> None:
 
 
 def require_cuda() -> torch.device:
-    """The current CUDA device, or RuntimeError when there is none."""
+    """The current CUDA device, or DeviceUnavailable (a RuntimeError) when
+    there is none."""
     if not torch.cuda.is_available():
-        raise RuntimeError(
+        raise DeviceUnavailable(
             "a CUDA device is required (torch.cuda.is_available() is False)"
         )
     apply_precision_policy()

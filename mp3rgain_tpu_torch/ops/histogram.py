@@ -13,13 +13,16 @@ analyzer's semantics (the Rust mp3rgain, src/replaygain.rs:624-771):
   cumulative count reaches total // 20 + 1 (the reference's
   ceil(total * (1.0 - 0.95)) for every attainable total).
 
-The histogram is a bincount over flattened (track, bin) offsets; the
-JAX package's (B, windows, 12000) compare-reduce was a workaround for
-TPU scatter lowering.
+The histogram is an index_add over flattened (track, bin) offsets, with
+the windows that count for nothing sent to one dummy bin: no boolean
+indexing and no bincount, both of which read a size back to the host and
+would stall a pipelined runner. The JAX package's (B, windows, 12000)
+compare-reduce was a workaround for TPU scatter lowering.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -56,10 +59,12 @@ def histogram(filtered: torch.Tensor, valid_len: torch.Tensor,
     bin_idx = val.to(torch.int32) + HISTOGRAM_OFFSET  # trunc toward zero
     ok = (totsamp > 0) & (bin_idx >= 0) & (bin_idx < HISTOGRAM_SIZE)
 
-    track = torch.arange(b, device=f.device).view(b, 1).expand_as(bin_idx)
-    flat = (track * HISTOGRAM_SIZE + bin_idx.long())[ok]
-    hist = torch.bincount(flat, minlength=b * HISTOGRAM_SIZE)
-    return hist.view(b, HISTOGRAM_SIZE).to(torch.int32)
+    track = torch.arange(b, device=f.device).view(b, 1)
+    dummy = b * HISTOGRAM_SIZE  # windows outside the histogram land here
+    flat = torch.where(ok, track * HISTOGRAM_SIZE + bin_idx.long(), dummy).reshape(-1)
+    hist = torch.zeros(dummy + 1, dtype=torch.int32, device=f.device)
+    hist.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    return hist[:dummy].view(b, HISTOGRAM_SIZE)
 
 
 def loudness_index(hist: torch.Tensor) -> torch.Tensor:
@@ -75,3 +80,19 @@ def loudness_index(hist: torch.Tensor) -> torch.Tensor:
 
 def index_to_loudness(idx: int) -> float:
     return -20.0 if idx < 0 else (int(idx) - HISTOGRAM_OFFSET) / STEPS_PER_DB
+
+
+def loudness_from_histogram(hist: np.ndarray) -> float:
+    """95th-percentile loudness readout of one histogram on the host (the
+    JAX package's host readout, reference-exact arithmetic); scan's album
+    union uses it."""
+    hist = np.asarray(hist, dtype=np.uint64)
+    total = int(hist.sum())
+    if total == 0:
+        return -20.0
+    threshold = int(np.ceil(total * (1.0 - RMS_PERCENTILE)))
+    rev_cum = np.cumsum(hist[::-1])
+    k = int(np.argmax(rev_cum >= threshold))
+    if rev_cum[k] < threshold:
+        return -20.0
+    return ((HISTOGRAM_SIZE - 1 - k) - HISTOGRAM_OFFSET) / STEPS_PER_DB

@@ -264,9 +264,13 @@ class EqualLoudness(nn.Module):
         key = (i, nb2, like.dtype, like.device)
         if key not in self._t3m:
             a_tail = self.plan[i][1]
-            t3m = _prefix_kernels(a_tail, self.block, nb2, L2)[1]
-            self._t3m[key] = torch.as_tensor(t3m, dtype=like.dtype,
-                                             device=like.device)
+            t3m = torch.as_tensor(_prefix_kernels(a_tail, self.block, nb2, L2)[1],
+                                  dtype=like.dtype)
+            if like.device.type == "cuda":
+                # From pinned memory without a host sync: a new length
+                # class mid-scan must not stall the queued batches.
+                t3m = t3m.pin_memory().to(like.device, non_blocking=True)
+            self._t3m[key] = t3m
         return self._t3m[key]
 
     def _stage(self, y, i: int):

@@ -3,14 +3,14 @@
 Counterpart of the single-device paths of mp3rgain_tpu/parallel/runner.py.
 
 The raw-bits ("light") route, the main path: host light walk → host lane
-sort and pack (prepare_batch_arrays_light) → blocking host-to-device
-copies → the row map (dest_rows) → Huffman decode (K1, CUDA) straight
+sort and pack (prepare_batch_arrays_light) → host-to-device upload
+(Runner: pinned staging and a copy stream on CUDA) → the row map (dest_rows) → Huffman decode (K1, CUDA) straight
 into K2's channel-major rows → scalefactor and info gathers →
 requantize + stereo (K2, CUDA) → hybrid and polyphase GEMMs →
 equal-loudness IIR → RMS-window histogram → 95th-percentile index.
 
 The host-decoded ("heavy") route: host full decode (frontend.unpack_data)
-→ padded compact manifest (prepare_batch_arrays) → blocking copies →
+→ padded compact manifest (prepare_batch_arrays) → the same upload →
 spectrum unpack → analysis_tail: the decode back-end of decode.synthesis
 (requantize, stereo, class-core GEMMs in K3, polyphase GEMMs) → the same
 IIR, histogram and index. light_tail(fused=False) feeds the light
@@ -18,14 +18,20 @@ route's decode (K1 into track-major rows) into that same analysis_tail,
 so the two routes agree exactly.
 
 The host packers are copies of the JAX package's, held bit-identical by
-the tests. Only the per-track index and peak come back to the host.
-Tracks in one batch share a sample rate and channel count; their
+the tests. The per-track histograms, indices and peaks come back to the
+host. Tracks in one batch share a sample rate and channel count; their
 constant tables live as buffers of one LightTail module.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import threading
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -40,6 +46,7 @@ from ..device import resolve_device
 from ..native import _lib
 from ..ops import histogram as hi
 from ..ops.iir import EqualLoudness
+from ..replaygain import PINK_REF, ReplayGainResult
 from ..utils import bufpool
 
 SAMPLE_SCALE_16BIT = 32768.0
@@ -556,67 +563,245 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+# ---------------------------------------------------------------------------
+# The pipelined runner.
+# ---------------------------------------------------------------------------
+
+_ALIGN = 256  # byte alignment of each array inside a staged upload
+_GROW_UNIT = 1 << 20
+_STAGING_SLOTS = 2  # pinned slots: one being copied while the next fills
+
+
+@dataclass
+class Prepared:
+    """A batch's host half (Runner.prepare_light / prepare_heavy): the
+    arrays to upload, the pooled ones among them (handed back to the pool
+    once staged) and the shape arguments of the device pipeline."""
+
+    light: bool
+    sample_rate: int
+    n_channels: int
+    bsz: int
+    arrays: tuple
+    pooled: tuple
+    shapes: dict
+    prep_s: float
+
+
+@dataclass
+class _Batch:
+    """A dispatched batch, for Runner.collect. On the CPU `result` holds
+    the (hist, loud_idx, peak) tensors; on a CUDA device `hist` and
+    `stats` are the pinned host buffers the batch's readback lands in and
+    `events` (copy start, copy end, compute start, readback end) time it."""
+
+    bsz: int
+    prep_s: float
+    h2d_s: float
+    device_ms: float = 0.0
+    result: tuple | None = None
+    hist: torch.Tensor | None = None
+    stats: torch.Tensor | None = None
+    events: tuple | None = None
+
+
 class Runner:
     """Batched analysis on one device, over the light route
-    (analyze_unpacked_light) or the host-decoded one (analyze_unpacked)."""
+    (dispatch_light / analyze_unpacked_light) or the host-decoded one
+    (dispatch_heavy / analyze_unpacked).
+
+    On a CUDA device a batch is pipelined: the host prep writes the pooled
+    numpy buffers, which are copied into a pinned staging slot the runner
+    owns (a ring of _STAGING_SLOTS, each grown to the largest upload seen)
+    and handed back to the pool at once; one non_blocking copy on the
+    runner's copy stream moves the slot to the device and records an
+    event; the compute stream waits on that event, runs the batch, and
+    enqueues a non_blocking readback of the histograms, indices and peaks
+    into pinned memory. A staging slot is refilled only after the copy
+    that read it has completed. collect() waits on the batch's own
+    readback event only, so batches dispatched after it keep running. On
+    the CPU every step is synchronous.
+
+    dispatch_* = launch(prepare_*(...)): the host half (prepare_*, no
+    device work) may run on any thread; all device work is enqueued by
+    launch under one lock, so launches from two threads cannot interleave.
+    analyze_library prepares on a small pool and launches from a single
+    uploader thread in batch order."""
 
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
         self._tails: dict[tuple, LightTail] = {}
-        # prep_s / h2d_s / device_s of the last collected batch (host
-        # clock; device_s runs from the last copy to the result readback).
+        self._lock = threading.RLock()
+        # prep_s / h2d_s (host clock) and device_ms of the last collected
+        # batch, and of every collected batch in collect order.
         self.last_timings: dict | None = None
+        self.timings: list[dict] = []
+        # CUDA only: each collected batch's device-busy intervals (its
+        # upload, then its compute + readback), ms on the runner's clock.
+        self.busy_ms: list[tuple[float, float]] = []
+        if self.device.type == "cuda":
+            self._compute = torch.cuda.current_stream(self.device)
+            self._copy = torch.cuda.Stream(self.device)
+            self._ring = [[None, None] for _ in range(_STAGING_SLOTS)]
+            self._slot = 0
+            self._origin = torch.cuda.Event(enable_timing=True)
+            self._origin.record(self._compute)
 
     def tail(self, sample_rate: int, n_channels: int) -> LightTail:
         key = (sample_rate, n_channels)
-        if key not in self._tails:
-            self._tails[key] = LightTail(sample_rate, n_channels).to(self.device)
-        return self._tails[key]
+        with self._lock:
+            if key not in self._tails:
+                self._tails[key] = LightTail(sample_rate, n_channels).to(self.device)
+            return self._tails[key]
 
-    def dispatch_light(self, unpacked: list, sample_rate: int,
-                       n_channels: int):
-        """Prepare, copy and enqueue a batch of same-format tracks;
-        returns a handle for collect()."""
-        tail = self.tail(sample_rate, n_channels)
+    def _upload(self, arrays):
+        """Host arrays → device tensors of the same shapes (uint16 as
+        int16) and the copy's (start, end) events (None on the CPU)."""
+        views = [np.ascontiguousarray(a.view(np.int16) if a.dtype == np.uint16 else a)
+                 for a in arrays]
+        if self.device.type == "cpu":
+            return [torch.from_numpy(a).clone() for a in views], None
+        offs, total = [], 0
+        for a in views:
+            offs.append(total)
+            total += -(-a.nbytes // _ALIGN) * _ALIGN
+        slot = self._ring[self._slot]
+        self._slot = (self._slot + 1) % len(self._ring)
+        staged, last_copy = slot
+        if last_copy is not None:
+            last_copy.synchronize()  # the copy that read this slot is done
+        if staged is None or staged.numel() < total:
+            size = -(-(total + total // 4) // _GROW_UNIT) * _GROW_UNIT
+            staged = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+        host = staged.numpy()
+        for a, off in zip(views, offs):
+            host[off : off + a.nbytes] = a.reshape(-1).view(np.uint8)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(self._copy):
+            start.record()
+            flat = torch.empty(total, dtype=torch.uint8, device=self.device)
+            flat.copy_(staged[:total], non_blocking=True)
+            end.record()
+        # Allocated on the copy stream, read on the compute stream: keep the
+        # allocator from handing the block to a later upload before the
+        # compute stream is done with it.
+        flat.record_stream(self._compute)
+        slot[0], slot[1] = staged, end
+        out = []
+        for a, off in zip(views, offs):
+            dt = torch.from_numpy(np.empty(0, a.dtype)).dtype
+            out.append(flat[off : off + a.nbytes].view(dt).view(a.shape))
+        return out, (start, end)
+
+    def _launch(self, run, bsz: int, prep_s: float, h2d_s: float, copy,
+                album: torch.Tensor | None) -> _Batch:
+        """Enqueue run() → (hist, loud_idx, peak) after the upload, the
+        album sum (album += the batch's histograms, int64) and the
+        readback."""
+        if copy is None:
+            t = time.perf_counter()
+            hist, loud_idx, peak = run()
+            if album is not None:
+                album += hist[:bsz].sum(dim=0, dtype=torch.int64)
+            return _Batch(bsz, prep_s, h2d_s, (time.perf_counter() - t) * 1e3,
+                          result=(hist, loud_idx, peak))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(self._compute):
+            self._compute.wait_event(copy[1])
+            start.record()
+            hist, loud_idx, peak = run()
+            hist = hist[:bsz]
+            stats = torch.stack([loud_idx[:bsz].to(torch.float32),
+                                 peak[:bsz].to(torch.float32)])
+            h_host = torch.empty(hist.shape, dtype=hist.dtype, pin_memory=True)
+            s_host = torch.empty(stats.shape, dtype=stats.dtype, pin_memory=True)
+            h_host.copy_(hist, non_blocking=True)
+            s_host.copy_(stats, non_blocking=True)
+            if album is not None:
+                album += hist.sum(dim=0, dtype=torch.int64)
+            end.record()
+        return _Batch(bsz, prep_s, h2d_s, hist=h_host, stats=s_host,
+                      events=(copy[0], copy[1], start, end))
+
+    def prepare_light(self, unpacked: list, sample_rate: int,
+                      n_channels: int) -> Prepared:
+        """Host prep of a batch of same-format light-unpacked tracks."""
         t0 = time.perf_counter()
         prep, rest, g_max = prepare_batch_arrays_light(unpacked, n_channels, 1)
-        t1 = time.perf_counter()
-        host = (prep.scalars, prep.buf, prep.meta, prep.inv) + tuple(rest)
-        dev = [_to_device(a, self.device) for a in host]
-        # The copies above are blocking: the pooled buffers are free again.
-        bufpool.give(prep.buf, prep.meta, rest[1], rest[6])
-        t2 = time.perf_counter()
-        hist, loud_idx, peak = analysis_core_light(
-            tail, *dev, nb=prep.nb, g_max=g_max)
-        marks = {"prep_s": t1 - t0, "h2d_s": t2 - t1, "launched": t2}
-        return hist, loud_idx, peak, len(unpacked), marks
+        return Prepared(True, sample_rate, n_channels, len(unpacked),
+                        (prep.scalars, prep.buf, prep.meta, prep.inv) + tuple(rest),
+                        (prep.buf, prep.meta, rest[1], rest[6]),
+                        {"nb": prep.nb, "g_max": g_max}, time.perf_counter() - t0)
 
-    def dispatch_heavy(self, unpacked: list, sample_rate: int,
-                       n_channels: int):
-        """Prepare, copy and enqueue a batch of same-format host-decoded
-        tracks (frontend.unpack_data); returns a handle for collect()."""
-        tail = self.tail(sample_rate, n_channels)
+    def prepare_heavy(self, unpacked: list, sample_rate: int,
+                      n_channels: int) -> Prepared:
+        """Host prep of a batch of same-format host-decoded tracks
+        (frontend.unpack_data)."""
         t0 = time.perf_counter()
         args = prepare_batch_arrays(unpacked, n_channels, 1)
-        t1 = time.perf_counter()
-        dev = [_to_device(a, self.device) for a in args]
-        t2 = time.perf_counter()
-        hist, loud_idx, peak = analysis_core(tail, *dev)
-        marks = {"prep_s": t1 - t0, "h2d_s": t2 - t1, "launched": t2}
-        return hist, loud_idx, peak, len(unpacked), marks
+        return Prepared(False, sample_rate, n_channels, len(unpacked), args, (), {},
+                        time.perf_counter() - t0)
 
-    def collect(self, handle):
-        """Wait for a dispatched batch; returns (hist (B, 12000) int32 on
-        the device, loudness (B,) np, peak (B,) np)."""
-        hist, loud_idx, peak, bsz, marks = handle
-        stats = torch.cat([loud_idx[:bsz].to(torch.float32),
-                           peak[:bsz].to(torch.float32)]).cpu().numpy()
-        self.last_timings = {
-            "prep_s": marks["prep_s"], "h2d_s": marks["h2d_s"],
-            "device_s": time.perf_counter() - marks["launched"],
-        }
-        louds = np.array([hi.index_to_loudness(i) for i in stats[:bsz]])
-        return hist[:bsz], louds, stats[bsz:]
+    def launch(self, prepared: Prepared, *, album: torch.Tensor | None = None):
+        """Stage, upload and enqueue a prepared batch; returns a handle for
+        collect(). album, a (12000,) int64 tensor on the device, gets the
+        batch's histograms added on the device."""
+        with self._lock, _on(self.device):
+            tail = self.tail(prepared.sample_rate, prepared.n_channels)
+            t1 = time.perf_counter()
+            try:
+                dev, copy = self._upload(prepared.arrays)
+            finally:
+                # Staged (pinned copy or CPU clone): the pool may reuse them.
+                bufpool.give(*prepared.pooled)
+            h2d_s = time.perf_counter() - t1
+            if prepared.light:
+                def run():
+                    return analysis_core_light(tail, *dev, **prepared.shapes)
+            else:
+                def run():
+                    return analysis_core(tail, *dev)
+            return self._launch(run, prepared.bsz, prepared.prep_s, h2d_s, copy, album)
+
+    def dispatch_light(self, unpacked: list, sample_rate: int,
+                       n_channels: int, *, album: torch.Tensor | None = None):
+        """prepare_light, then launch."""
+        return self.launch(self.prepare_light(unpacked, sample_rate, n_channels),
+                           album=album)
+
+    def dispatch_heavy(self, unpacked: list, sample_rate: int,
+                       n_channels: int, *, album: torch.Tensor | None = None):
+        """prepare_heavy, then launch."""
+        return self.launch(self.prepare_heavy(unpacked, sample_rate, n_channels),
+                           album=album)
+
+    def collect(self, handle: _Batch):
+        """Wait for a dispatched batch (on a CUDA device, for its readback
+        event only); returns host arrays (hist (B, 12000) int32, loudness
+        (B,) dB, peak (B,))."""
+        bsz = handle.bsz
+        if handle.events is None:
+            hist_t, loud_idx, peak = handle.result
+            hist = hist_t[:bsz].numpy()
+            idx = loud_idx[:bsz].numpy()
+            peaks = peak[:bsz].to(torch.float32).numpy()
+            device_ms = handle.device_ms
+        else:
+            copy_start, copy_end, start, end = handle.events
+            end.synchronize()
+            hist = np.array(handle.hist.numpy())  # off the pinned block
+            stats = handle.stats.numpy()
+            idx, peaks = stats[0], stats[1].copy()
+            device_ms = start.elapsed_time(end)
+            self.busy_ms += [(self._origin.elapsed_time(a), self._origin.elapsed_time(b))
+                             for a, b in ((copy_start, copy_end), (start, end))]
+        self.last_timings = {"prep_s": handle.prep_s, "h2d_s": handle.h2d_s,
+                             "device_ms": device_ms}
+        self.timings.append(self.last_timings)
+        louds = np.array([hi.index_to_loudness(i) for i in idx])
+        return hist, louds, peaks
 
     def analyze_unpacked_light(self, unpacked: list, sample_rate: int,
                                n_channels: int):
@@ -633,3 +818,285 @@ class Runner:
         return self.collect(
             self.dispatch_heavy(unpacked, sample_rate, n_channels)
         )
+
+
+def _on(device: torch.device):
+    """The device's context for CUDA, nothing for the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+# ---------------------------------------------------------------------------
+# Library scans: bucketed, streamed batches with fault isolation.
+# ---------------------------------------------------------------------------
+
+MAX_INFLIGHT = 4  # batches dispatched and not yet collected
+# Host prep threads. Prep is mostly native code that leaves the GIL free;
+# one thread could not keep up with the device (PERF.md, §6).
+PREP_THREADS = 2
+# Admission budget for the batches in flight, in _est_resident_bytes'
+# units (inputs and the decode's int16 spectra, x1.3). Four full 64 x 60 s
+# batches estimate 5.3 GB; on an 80 GB H100 the scan's peak is one
+# batch's working set (11.4 GB) plus the queued uploads (PERF.md).
+INFLIGHT_BYTES = 8_000_000_000
+
+
+def _result_of(fn, *args):
+    """(value, None) on success, (None, str(error)) on failure."""
+    try:
+        return fn(*args), None
+    except Exception as e:  # per-file isolation
+        return None, str(e)
+
+
+@dataclass
+class TrackOutcome:
+    path: str
+    ok: bool
+    error: str | None = None
+    result: ReplayGainResult | None = None
+    histogram: np.ndarray | None = None  # (12000,) int32, on the host
+
+
+@dataclass
+class BatchResult:
+    tracks: list[TrackOutcome]
+    audio_seconds: float
+    wall_seconds: float
+    album_histogram: np.ndarray | None = None
+    album_peak: float = 0.0
+
+    @property
+    def realtime_factor(self) -> float:
+        return self.audio_seconds / max(self.wall_seconds, 1e-9)
+
+
+def _retryable(e: BaseException) -> bool:
+    """Device memory pressure that halving a batch can relieve: the
+    caching allocator's out-of-memory error. A CUDA error a kernel launch
+    reported (_build.check) is not: an illegal address is sticky."""
+    return isinstance(e, torch.cuda.OutOfMemoryError)
+
+
+def _est_resident_bytes(ups) -> int:
+    """Approximate device bytes a queued batch stands for: its input
+    manifest plus the decode's int16 spectra; 1.3x covers ladder and
+    ragged padding."""
+    n = sum(u.n for u in ups)
+    inputs = sum(a.nbytes for u in ups for a in vars(u).values()
+                 if isinstance(a, np.ndarray))
+    return int(1.3 * inputs + 1.3 * n * 576 * 2)
+
+
+def _chunk_size(members, max_batch: int, rows_cap: int) -> int:
+    """Largest prefix of the length-sorted members whose padded
+    (bpad x g_max) row footprint stays under rows_cap: every batch's
+    device memory is bounded by construction (the 64 x 60 s batch is
+    589,824 rows and peaks at 11.4 GB on the H100, PERF.md)."""
+    c = min(len(members), max_batch)
+    while c > 1:
+        u = members[c - 1][1]
+        g = _quantize_up(u.n, 2 * u.n_channels, base=512, ratio=1.3)
+        bpad = next((b for b in _B_LADDER if b >= c), c)
+        if bpad * g <= rows_cap:
+            break
+        lower = [b for b in _B_LADDER if b < bpad]
+        c = min(c - 1, lower[-1] if lower else 1)
+    return c
+
+
+def analyze_library(
+    paths,
+    runner: Runner | None = None,
+    album: bool = False,
+    device_entropy: bool = True,
+    wave_size: int | None = None,
+    batch_cb=None,
+    *,
+    max_batch: int = 64,
+    rows_cap: int = 640_000,
+    inflight_bytes: int = INFLIGHT_BYTES,
+    pressure_backoff_s: float = 10.0,
+) -> BatchResult:
+    """Analyze many tracks with bucketed batching and fault isolation.
+
+    The library streams in waves of `wave_size` files (4 x max_batch by
+    default; the first wave is max_batch files, so the device starts after
+    one batch's walk), walked by a thread pool of min(n, cpu_count - PREP_THREADS,
+    16) (the native walk releases the GIL), so a 10k-track scan never
+    holds more than a wave of unpacked audio plus one partial batch per
+    (sample rate, channels) bucket. Full buckets are cut into
+    length-sorted, rows_cap-bounded batches, prepared on a pool of
+    PREP_THREADS and launched (staged, uploaded, enqueued) in batch order
+    by one uploader thread while the main thread walks the next wave;
+    results are collected one batch behind, with at most MAX_INFLIGHT
+    batches in flight and, beyond two, only while their estimated bytes
+    stay under inflight_bytes. device_entropy=False runs the host-decoded
+    route (Runner.prepare_heavy).
+
+    A file that fails to read or walk becomes a failed TrackOutcome and
+    the scan goes on. A batch whose dispatch runs out of device memory
+    is retried in halves; a single track that still fails after a
+    pressure_backoff_s pause is isolated as failed. Any other error
+    raises. With album=True the batches' histograms are summed on the
+    device (int64). batch_cb, if given, is called with the TrackOutcomes
+    of each collected batch (scan checkpointing)."""
+    runner = runner or Runner()
+    t0 = time.monotonic()
+    if wave_size is None:
+        wave_size = 4 * max_batch
+    paths = list(paths)
+
+    outcomes: dict[int, TrackOutcome] = {}
+    buckets: dict[tuple[int, int], list] = {}
+    audio_seconds = 0.0
+    album_hist = (torch.zeros(hi.HISTOGRAM_SIZE, dtype=torch.int64,
+                              device=runner.device) if album else None)
+    inflight: deque = deque()  # (future, idxs, sr, nch, ups, est)
+
+    def _unpack(path):
+        if device_entropy:
+            with open(path, "rb") as f:
+                u = fe.unpack_data_light_packed(f.read())
+        else:
+            u = fe.unpack_file(path)
+        if u.n == 0:
+            raise RuntimeError("No valid MP3 frames found")
+        return u
+
+    prepare = runner.prepare_light if device_entropy else runner.prepare_heavy
+
+    def _dispatch(ups, sr, nch):
+        return runner.launch(prepare(ups, sr, nch), album=album_hist)
+
+    def _launch(prepared):
+        return runner.launch(prepared.result(), album=album_hist)
+
+    def _dispatch_collect_halving(ups, idxs, sr, nch):
+        """Runs on the uploader thread after an out-of-memory dispatch:
+        dispatch and collect at once, halving the batch until it fits; at
+        one track, retry once after the backoff, then isolate it."""
+        try:
+            return [(idxs, runner.collect(_dispatch(ups, sr, nch)))]
+        except Exception as e:
+            if not _retryable(e):
+                raise
+            if runner.device.type == "cuda":
+                torch.cuda.empty_cache()
+            if len(ups) == 1:
+                time.sleep(pressure_backoff_s)
+                try:
+                    return [(idxs, runner.collect(_dispatch(ups, sr, nch)))]
+                except Exception as e2:
+                    if not _retryable(e2):
+                        raise
+                    return [(idxs, e2)]
+            mid = len(ups) // 2
+            return (_dispatch_collect_halving(ups[:mid], idxs[:mid], sr, nch)
+                    + _dispatch_collect_halving(ups[mid:], idxs[mid:], sr, nch))
+
+    def _finish_batch(idxs, sr, collected):
+        if isinstance(collected, Exception):
+            # One track that failed even after halving and the backoff: an
+            # isolated failure (no result, no checkpoint), not a dead scan.
+            for i in idxs:
+                outcomes[i] = TrackOutcome(
+                    path=str(paths[i]), ok=False,
+                    error=f"device dispatch failed under pressure: {collected}")
+            return
+        hist, louds, peaks = collected
+        done = []
+        for j, i in enumerate(idxs):
+            loud = float(louds[j])
+            outcomes[i] = TrackOutcome(
+                path=str(paths[i]), ok=True,
+                result=ReplayGainResult(
+                    loudness_db=loud, gain_db=PINK_REF - loud,
+                    peak=float(peaks[j]), sample_rate=sr, file_type="mp3"),
+                histogram=hist[j],
+            )
+            done.append(outcomes[i])
+        if batch_cb:
+            batch_cb(done)
+
+    uploader = ThreadPoolExecutor(max_workers=1, thread_name_prefix="mp3rgain-upload")
+    preppers = ThreadPoolExecutor(max_workers=PREP_THREADS,
+                                  thread_name_prefix="mp3rgain-prep")
+
+    def collect_one():
+        fut, idxs, sr, nch, ups, _est = inflight.popleft()
+        try:
+            handle = fut.result()
+        except Exception as e:
+            if not _retryable(e):
+                raise
+            retried = uploader.submit(_dispatch_collect_halving, ups, idxs, sr, nch)
+            for idxs2, collected in retried.result():
+                _finish_batch(idxs2, sr, collected)
+            return
+        _finish_batch(idxs, sr, runner.collect(handle))
+
+    def flush_bucket(key, members):
+        sr, nch = key
+        idxs = [i for i, _ in members]
+        ups = [u for _, u in members]
+        est = _est_resident_bytes(ups)
+        while inflight and (
+            len(inflight) >= MAX_INFLIGHT
+            or (len(inflight) >= 2
+                and sum(e[5] for e in inflight) + est > inflight_bytes)
+        ):
+            collect_one()
+        prepared = preppers.submit(prepare, ups, sr, nch)
+        inflight.append((uploader.submit(_launch, prepared), idxs, sr, nch, ups, est))
+
+    def flush_ready(key, members, final=False):
+        """Cut length-sorted, rows-capped batches off a bucket: whole
+        max_batch batches at a wave's end, everything at the scan's end."""
+        if not final and len(members) < max_batch:
+            return
+        members.sort(key=lambda iu: iu[1].n)
+        while members and (final or len(members) >= max_batch):
+            c = _chunk_size(members, max_batch, rows_cap)
+            flush_bucket(key, members[:c])
+            del members[:c]
+
+    # The walk leaves the prep threads their cores.
+    workers = min(max(len(paths), 1), max((os.cpu_count() or 1) - PREP_THREADS, 1), 16)
+    walkers = ThreadPoolExecutor(max_workers=workers) if workers > 1 else None
+    first = min(wave_size, max_batch)
+    bounds = [0, *range(first, len(paths), wave_size), len(paths)]
+    try:
+        for wstart, wend in zip(bounds, bounds[1:]):
+            widx = list(range(wstart, wend))
+            wave = [paths[i] for i in widx]
+            if walkers is not None and len(wave) > 1:
+                unpacked = list(walkers.map(lambda p: _result_of(_unpack, p), wave))
+            else:
+                unpacked = [_result_of(_unpack, p) for p in wave]
+            for i, path, (u, err) in zip(widx, wave, unpacked):
+                if err is not None:
+                    outcomes[i] = TrackOutcome(path=str(path), ok=False, error=err)
+                    continue
+                sr, nch = u.sample_rate, u.n_channels
+                buckets.setdefault((sr, nch), []).append((i, u))
+                audio_seconds += (u.n // nch) * 576 / sr
+            for key, members in buckets.items():
+                flush_ready(key, members)
+        for key, members in buckets.items():
+            flush_ready(key, members, final=True)
+        while inflight:
+            collect_one()
+    finally:
+        uploader.shutdown(wait=True, cancel_futures=True)
+        preppers.shutdown(wait=True, cancel_futures=True)
+        if walkers is not None:
+            walkers.shutdown(wait=True)
+
+    tracks = [outcomes[i] for i in range(len(paths))]
+    result = BatchResult(tracks=tracks, audio_seconds=audio_seconds,
+                         wall_seconds=time.monotonic() - t0)
+    ok = [t for t in tracks if t.ok]
+    if album and ok:
+        result.album_histogram = album_hist.cpu().numpy()
+        result.album_peak = max(t.result.peak for t in ok)
+    return result

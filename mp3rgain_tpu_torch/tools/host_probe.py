@@ -1,0 +1,102 @@
+"""Host side of a library scan: how the walk and the prep scale on threads.
+
+    python -m mp3rgain_tpu_torch.tools.host_probe
+
+Times, on the committed 60 s bench clip (no device work): the light walk
+of 64 tracks on one thread and of 256 tracks on walk pools of 4, 6 and 8
+threads; the 64-track batch prep (runner.prepare_batch_arrays_light) on
+one thread and 2, 3 and 4 at once; a 256-track walk beside 4 preps on 2
+threads; and how much of the GIL the prep leaves free (the rate of a
+pure-Python loop in another thread during prep, over its rate idle).
+analyze_library's PREP_THREADS and walk-pool size rest on these numbers.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+from ..decode import frontend as fe
+from ..parallel import runner as pr
+from ..testing import make_smoke_data as smoke
+from ..utils import bufpool
+
+BATCH = 64
+
+
+def _gil_free_share(work) -> float:
+    """Rate of a pure-Python counting loop while `work` runs, over its
+    rate while the main thread sleeps."""
+    def rate(body):
+        stop, n = [False], [0]
+
+        def spin():
+            while not stop[0]:
+                n[0] += 1
+
+        th = threading.Thread(target=spin)
+        th.start()
+        t = time.perf_counter()
+        body()
+        dt = time.perf_counter() - t
+        stop[0] = True
+        th.join()
+        return n[0] / dt
+
+    return rate(work) / rate(lambda: time.sleep(0.3))
+
+
+def main() -> None:
+    with open(os.path.join(smoke.DATA_DIR, smoke.BENCH_TRACK), "rb") as f:
+        data = f.read()
+
+    def walk(_=None):
+        return fe.unpack_data_light_packed(data)
+
+    walk()  # builds the host library on first use
+    t = time.perf_counter()
+    ups = [walk() for _ in range(BATCH)]
+    print(f"os.cpu_count() {os.cpu_count()}; walk {BATCH} x 60 s on 1 thread "
+          f"{time.perf_counter() - t:.4f} s", flush=True)
+    for n in (4, 6, 8):
+        with ThreadPoolExecutor(n) as ex:
+            t = time.perf_counter()
+            list(ex.map(walk, range(4 * BATCH)))
+            print(f"walk {4 * BATCH} on {n} threads {time.perf_counter() - t:.4f} s",
+                  flush=True)
+
+    def prep(_=None) -> float:
+        t = time.perf_counter()
+        p, rest, _g = pr.prepare_batch_arrays_light(ups, 2)
+        dt = time.perf_counter() - t
+        bufpool.give(p.buf, p.meta, rest[1], rest[6])
+        return dt
+
+    def fmt(ts):
+        return ", ".join(f"{x:.4f}" for x in ts)
+
+    print(f"prep of a {BATCH}-track batch on 1 thread: {fmt([prep() for _ in range(4)])} s",
+          flush=True)
+    for n in (2, 3, 4):
+        with ThreadPoolExecutor(n) as ex:
+            t = time.perf_counter()
+            each = list(ex.map(prep, range(2 * n)))
+            print(f"{2 * n} preps on {n} threads: wall {time.perf_counter() - t:.4f} s "
+                  f"(each {fmt(each)})", flush=True)
+    for n in (8, 6):
+        with ThreadPoolExecutor(n) as walkers, ThreadPoolExecutor(2) as preppers:
+            t = time.perf_counter()
+            walked = walkers.map(walk, range(4 * BATCH))
+            each = list(preppers.map(prep, range(4)))
+            list(walked)
+            print(f"walk {4 * BATCH} on {n} threads beside 4 preps on 2 threads: wall "
+                  f"{time.perf_counter() - t:.4f} s (preps {fmt(each)})", flush=True)
+    share = _gil_free_share(lambda: [prep() for _ in range(4)])
+    print(f"GIL during prep: a Python thread ran at {share:.3f} of its idle rate",
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()

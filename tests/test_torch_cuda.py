@@ -189,9 +189,38 @@ def test_light_path_on_card_matches_cpu(dev):
     assert (ek.COUNT.plain, hk.COUNT.plain) == (0, 0)
     c_hist, c_louds, c_peaks = pr.Runner("cpu").analyze_unpacked_light(
         [u], u.sample_rate, u.n_channels)
-    assert torch.equal(hist.sum(dim=1).cpu(), c_hist.sum(dim=1).repeat(2))
+    assert np.array_equal(hist.sum(axis=1), np.repeat(c_hist.sum(axis=1), 2))
     assert np.all(np.abs(louds - c_louds[0]) <= 0.02 + 1e-9)
     np.testing.assert_allclose(peaks, c_peaks[0], rtol=2e-4, atol=1e-6)
+
+
+def test_library_on_card_matches_runner_batches(dev, tmp_path):
+    """analyze_library over 3 pipelined batches (6 copies of a clip, two
+    to a batch) equals Runner(dev) on one such batch, with K1 and K2
+    launched once per batch and the album summed on the card."""
+    paths = []
+    for i in range(6):
+        paths.append(str(tmp_path / f"t{i}.mp3"))
+        with open(paths[-1], "wb") as f:
+            f.write(_clip(smoke.TRANSIENT_TRACK))
+    ek.COUNT.reset()
+    hk.COUNT.reset()
+    runner = pr.Runner(dev)
+    res = pr.analyze_library(paths, runner=runner, album=True, max_batch=2)
+    assert len(runner.timings) == 3
+    assert (ek.COUNT.kernel, hk.COUNT.kernel) == (3, 3)
+    assert (ek.COUNT.plain, hk.COUNT.plain) == (0, 0)
+    u = fe.unpack_data_light_packed(_clip(smoke.TRANSIENT_TRACK))
+    hist, louds, peaks = pr.Runner(dev).analyze_unpacked_light(
+        [u, u], u.sample_rate, u.n_channels)
+    for t in res.tracks:
+        assert t.ok and isinstance(t.histogram, np.ndarray)
+        assert int(t.histogram.sum()) == int(hist[0].sum())
+        assert abs(t.result.loudness_db - louds[0]) <= 0.02 + 1e-9
+        np.testing.assert_allclose(t.result.peak, peaks[0], rtol=2e-4, atol=1e-6)
+    assert np.array_equal(res.album_histogram,
+                          np.sum([t.histogram for t in res.tracks], axis=0))
+    assert all(t["device_ms"] > 0 for t in runner.timings)
 
 
 def test_failed_kernel_library_raises(dev, monkeypatch):
@@ -273,7 +302,7 @@ def test_heavy_route_on_card_matches_cpu_and_light(dev):
     assert cc.COUNT.kernel == 1 and cc.COUNT.plain == 0
     c_hist, c_louds, c_peaks = pr.Runner("cpu").analyze_unpacked(
         [full], full.sample_rate, full.n_channels)
-    assert torch.equal(hist.sum(dim=1).cpu(), c_hist.sum(dim=1).repeat(2))
+    assert np.array_equal(hist.sum(axis=1), np.repeat(c_hist.sum(axis=1), 2))
     assert np.all(np.abs(louds - c_louds[0]) <= 0.02 + 1e-9)
     np.testing.assert_allclose(peaks, c_peaks[0], rtol=2e-4, atol=1e-6)
 

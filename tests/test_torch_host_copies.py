@@ -1,13 +1,23 @@
 """Torch port: its copies of the JAX package's host code equal the originals.
 
 The port imports nothing of mp3rgain_tpu, so it carries copies of the host
-code it needs: the native C++ front-end (_native/, built by native.py),
-the MP3 front-end (decode/frontend.py), the table builders and filter
-coefficients, the buffer pool, the result types, the crafted streams and
-the libmp3lame encoder. Every copy is held here to its original: the
-Python copies by their code (docstrings and comments aside) and by their
-outputs, the C++ copies by their code lines and by the front-end's
-outputs, array for array, on the committed clips and the crafted streams.
+code it needs: the native C++ front-end and byte-surgery core (_native/,
+built by native.py), the MP3 front-end (decode/frontend.py), the table
+builders and filter coefficients, the buffer pool, the result types, the
+crafted streams, the libmp3lame encoder and the CLI's host modules (ape,
+id3v2, bitstream, mp4meta, utils). Every copy is held here to its
+original: the Python copies by their code (docstrings and comments aside)
+and by their outputs, the C++ copies by their code lines and by the
+outputs of the functions over them, on the committed clips and the
+crafted streams.
+
+Three copies must differ, and are held by the rest of their code and by
+their outputs: bitstream.find_max_amplitude (the decoded peak runs on a
+device the caller names, and a missing card raises instead of falling
+back to an estimate), mp4meta (its ctypes declarations live in
+native._declare, so importing it loads no library) and native.py (the
+library is built and declared on first use; its wrappers of the
+byte-surgery entry points are the original's functions, held by code).
 """
 
 import ast
@@ -22,7 +32,10 @@ import pytest
 
 pytest.importorskip("jax")
 
+from mp3rgain_tpu import ape as jape  # noqa: E402
 from mp3rgain_tpu import bitstream  # noqa: E402
+from mp3rgain_tpu import mp4meta as jmp4  # noqa: E402
+from mp3rgain_tpu import native as jnative  # noqa: E402
 from mp3rgain_tpu import replaygain as jrg  # noqa: E402
 from mp3rgain_tpu.decode import entropy_tables as jet  # noqa: E402
 from mp3rgain_tpu.decode import format_tables as jft  # noqa: E402
@@ -32,7 +45,8 @@ from mp3rgain_tpu.decode import tables as jtables  # noqa: E402
 from mp3rgain_tpu.ops import coeffs as jcoeffs  # noqa: E402
 from mp3rgain_tpu.testing import craft as jcraft  # noqa: E402
 from mp3rgain_tpu.testing import fixtures  # noqa: E402
-from mp3rgain_tpu_torch import native, replaygain  # noqa: E402
+from mp3rgain_tpu_torch import ape, mp4meta, native, replaygain  # noqa: E402
+from mp3rgain_tpu_torch import bitstream as tbitstream  # noqa: E402
 from mp3rgain_tpu_torch.decode import entropy_tables, format_tables, frontend  # noqa: E402
 from mp3rgain_tpu_torch.decode import synth_window, tables  # noqa: E402
 from mp3rgain_tpu_torch.ops import coeffs  # noqa: E402
@@ -79,10 +93,15 @@ PY_COPIES = [
     "ops/coeffs.py",
     "utils/bufpool.py",
     "testing/craft.py",
+    "ape.py",
+    "id3v2.py",
+    "utils/__init__.py",
+    "utils/term.py",
+    "utils/progress.py",
 ]
 
 
-def _code(path: str) -> str:
+def _tree(path: str) -> ast.Module:
     """The module's AST without docstrings (comments never reach it)."""
     tree = ast.parse(open(path).read())
     for node in ast.walk(tree):
@@ -91,12 +110,63 @@ def _code(path: str) -> str:
                 and isinstance(body[0].value, ast.Constant)
                 and isinstance(body[0].value.value, str)):
             node.body = body[1:] or [ast.Pass()]
-    return ast.dump(tree)
+    return tree
+
+
+def _code(path: str) -> str:
+    return ast.dump(_tree(path))
 
 
 @pytest.mark.parametrize("rel", PY_COPIES)
 def test_python_copy_has_the_original_code(rel):
     assert _code(os.path.join(PORT_PKG, rel)) == _code(os.path.join(JAX_PKG, rel))
+
+
+def _defs(path: str) -> dict[str, str]:
+    """Top-level functions and classes of a module, by name, as code."""
+    return {n.name: ast.dump(n) for n in _tree(path).body
+            if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+
+
+def _declares_on_lib(node) -> bool:
+    """`_lib.mg_....restype = ...` / `.argtypes = ...` at module level."""
+    return (isinstance(node, ast.Assign) and len(node.targets) == 1
+            and isinstance(node.targets[0], ast.Attribute)
+            and isinstance(node.targets[0].value, ast.Attribute)
+            and isinstance(node.targets[0].value.value, ast.Name)
+            and node.targets[0].value.value.id == "_lib")
+
+
+@pytest.mark.parametrize("rel,differs", [
+    ("bitstream.py", {"find_max_amplitude"}),
+    ("mp4meta.py", set()),
+])
+def test_python_copy_differs_only_where_it_must(rel, differs):
+    """bitstream.py: every function but find_max_amplitude is the
+    original's code. mp4meta.py: the original's code without its ctypes
+    declarations, which the port makes in native._declare."""
+    def body(path):
+        keep = [n for n in _tree(path).body if not _declares_on_lib(n)
+                and getattr(n, "name", None) not in differs]
+        return [ast.dump(n) for n in keep]
+
+    mine, theirs = os.path.join(PORT_PKG, rel), os.path.join(JAX_PKG, rel)
+    assert body(mine) == body(theirs)
+    assert set(_defs(mine)) == set(_defs(theirs))
+
+
+def test_native_wrappers_are_the_original_functions():
+    """native.py's byte-surgery and APEv2 wrappers (the original's
+    functions, unchanged)."""
+    mine = _defs(os.path.join(PORT_PKG, "native.py"))
+    theirs = _defs(os.path.join(JAX_PKG, "native.py"))
+    names = ["_MgAnalysis", "_mutbuf", "Analysis", "analyze", "apply_gain",
+             "apply_gain_channel", "read_gains", "frame_index", "find_audio_end",
+             "read_bits8", "write_bits8", "ape_find_footer", "ape_parse",
+             "ape_serialize", "ape_remove_region"]
+    assert set(names) <= set(mine)
+    for name in names:
+        assert mine[name] == theirs[name], name
 
 
 # --- C++ copies: the same code lines, comments aside --------------------------
@@ -110,7 +180,10 @@ def _code_lines(path: str) -> list[str]:
     return out
 
 
-@pytest.mark.parametrize("name", ["mp3dec.cpp", "mp4box.cpp", "huffman_tables.h"])
+NATIVE_SOURCES = ["bitstream.cpp", "ape.cpp", "mp3dec.cpp", "mp4box.cpp"]
+
+
+@pytest.mark.parametrize("name", NATIVE_SOURCES + ["huffman_tables.h"])
 def test_native_copy_has_the_original_code(name):
     mine = _code_lines(os.path.join(PORT_PKG, "_native", name))
     theirs = _code_lines(os.path.join(JAX_PKG, "_native", name))
@@ -119,8 +192,8 @@ def test_native_copy_has_the_original_code(name):
 
 def test_native_header_declares_the_sources_entry_points():
     """The port's native.h declares exactly the C entry points that the
-    original mp3dec.cpp and mp4box.cpp define, with their signatures, and
-    every one the port binds."""
+    originals of its four sources define, with their signatures, and every
+    one the port binds."""
     sig = r"\w+\s*\**\s*mg_\w+\s*\([^)]*\)"
 
     def found(text, end):
@@ -129,12 +202,13 @@ def test_native_header_declares_the_sources_entry_points():
 
     mine = found(" ".join(_code_lines(os.path.join(PORT_PKG, "_native", "native.h"))), ";")
     defined = set()
-    for name in ("mp3dec.cpp", "mp4box.cpp"):
+    for name in NATIVE_SOURCES:
         defined |= found(" ".join(_code_lines(os.path.join(JAX_PKG, "_native", name))), "{")
     assert mine == defined
+    assert native.SOURCES == NATIVE_SOURCES
     bound = {"mg_mp3_unpack", "mg_mp3_unpack_light", "mg_mp3_unpack_light2",
              "mg_mp3_count_gch", "mg_entropy_pack4", "mg_sort_est_bits",
-             "mg_pack_light_track", "mg_mp4_is_mp4"}
+             "mg_pack_light_track", "mg_mp4_is_mp4"} | set(SURGERY_ENTRY_POINTS)
     assert all(any(f" {n}(" in d for d in mine) for n in bound)
 
 
@@ -151,14 +225,37 @@ class _Lib:
         return fn
 
 
+SURGERY_ENTRY_POINTS = [
+    "mg_analyze", "mg_apply_gain", "mg_apply_gain_channel", "mg_read_gains",
+    "mg_frame_index", "mg_find_audio_end", "mg_read_bits8", "mg_write_bits8",
+    "mg_ape_find_footer", "mg_ape_parse", "mg_ape_serialize",
+    "mg_ape_remove_region", "mg_mp4_is_mp4", "mg_mp4_read_tags",
+    "mg_mp4_write_tags",
+]
+
+
 @pytest.mark.parametrize("name", ["mg_mp3_unpack", "mg_mp3_unpack_light",
-                                  "mg_mp3_count_gch", "mg_mp3_unpack_light2"])
+                                  "mg_mp3_count_gch", "mg_mp3_unpack_light2"]
+                         + SURGERY_ENTRY_POINTS)
 def test_native_signatures_equal_the_front_end_originals(name):
     mine = _Lib()
     native._declare(mine)
-    theirs = getattr(jfe._lib, name)
-    assert getattr(mine, name).argtypes == theirs.argtypes
-    assert getattr(mine, name).restype is theirs.restype
+    theirs = getattr(jnative._lib, name)
+    assert _ctype(getattr(mine, name).restype) == _ctype(theirs.restype)
+    assert ([_ctype(t) for t in getattr(mine, name).argtypes]
+            == [_ctype(t) for t in theirs.argtypes])
+
+
+def _ctype(t):
+    """A ctypes type by what it is: a pointer by its target, a structure by
+    its fields (the two packages each define mg_analyze's structure)."""
+    if t is None or not hasattr(t, "_type_") and not hasattr(t, "_fields_"):
+        return t
+    if hasattr(t, "_fields_"):
+        return ("struct", tuple((n, _ctype(ft)) for n, ft in t._fields_))
+    if isinstance(t._type_, type):
+        return ("pointer", _ctype(t._type_))
+    return t
 
 
 def test_native_build_is_atomic_under_a_race(tmp_path):
@@ -337,3 +434,101 @@ def test_encoder_copy_byte_identical(channels, sr, kw):
     pcm = _pcm(channels, sr, sr + channels)
     mine = smoke.encode_mp3(pcm, sr, **kw)
     assert mine == fixtures.encode_mp3(pcm, sr, **kw) and len(mine) > 1000
+
+
+# --- the byte-surgery core's outputs ----------------------------------------------
+
+@pytest.mark.parametrize("name", ["bench", "mono_22k", "transient", "truncated",
+                                  "craft_intensity", "craft_mixed_block"])
+def test_byte_surgery_outputs_equal_the_original(name):
+    data = STREAMS[name]()
+    for fn in ("read_gains", "frame_index", "find_audio_end"):
+        _same(getattr(native, fn)(data), getattr(jnative, fn)(data), f"{name}.{fn}")
+    _same(native.analyze(data), jnative.analyze(data), f"{name}.analyze")
+    assert native.read_bits8(data, 100, 3) == jnative.read_bits8(data, 100, 3)
+    for steps, wrap in ((2, False), (-3, False), (200, True)):
+        mine, theirs = bytearray(data), bytearray(data)
+        assert native.apply_gain(mine, steps, wrap) == jnative.apply_gain(theirs, steps, wrap)
+        assert mine == theirs, (name, steps, wrap)
+    for channel in (0, 1):
+        mine, theirs = bytearray(data), bytearray(data)
+        assert (native.apply_gain_channel(mine, channel, -2)
+                == jnative.apply_gain_channel(theirs, channel, -2))
+        assert mine == theirs, (name, channel)
+    mine, theirs = bytearray(data), bytearray(data)
+    native.write_bits8(mine, 200, 5, 0xA5)
+    jnative.write_bits8(theirs, 200, 5, 0xA5)
+    assert mine == theirs
+
+
+def test_ape_outputs_equal_the_original():
+    data = _clip(smoke.TRANSIENT_TRACK)
+    items = [(b"MP3GAIN_UNDO", b"+002,+002,N"), (b"MP3GAIN_MINMAX", b"120,210"),
+             (b"REPLAYGAIN_TRACK_GAIN", b"-6.70 dB")]
+    tag = native.ape_serialize(items)
+    assert tag == jnative.ape_serialize(items) and len(tag) > 64
+    tagged = data + tag
+    for fn in ("ape_find_footer", "ape_parse", "ape_remove_region"):
+        _same(getattr(native, fn)(tagged), getattr(jnative, fn)(tagged), fn)
+        _same(getattr(native, fn)(data), getattr(jnative, fn)(data), fn)
+    mine, theirs = ape.read_ape_tag(tagged), jape.read_ape_tag(tagged)
+    assert mine.items == theirs.items
+    assert ape.serialize_ape_tag(mine) == jape.serialize_ape_tag(theirs)
+    assert ape.remove_ape_tag(tagged) == jape.remove_ape_tag(tagged) == data
+    assert (ape.write_ape_tag_to_data(data, mine)
+            == jape.write_ape_tag_to_data(data, theirs))
+    assert ape.parse_undo_values("+002,-001,N") == jape.parse_undo_values("+002,-001,N")
+
+
+def _box(kind: bytes, payload: bytes) -> bytes:
+    return (8 + len(payload)).to_bytes(4, "big") + kind + payload
+
+
+def test_mp4meta_outputs_equal_the_original(tmp_path):
+    """A minimal ISO-BMFF file (ftyp, moov/trak/.../stco, mdat): the sniff,
+    and ReplayGain tags written, read back and deleted."""
+    stco = _box(b"stco", bytes(4) + (1).to_bytes(4, "big") + (0).to_bytes(4, "big"))
+    moov = _box(b"moov", _box(b"trak", _box(b"mdia", _box(b"minf", _box(b"stbl", stco)))))
+    m4a = _box(b"ftyp", b"M4A " + bytes(4) + b"M4A mp42isom") + moov + _box(
+        b"mdat", bytes(range(64)))
+    mp3 = tmp_path / "a.mp3"
+    mp3.write_bytes(_clip(smoke.TRANSIENT_TRACK))
+    path = tmp_path / "a.m4a"
+    path.write_bytes(m4a)
+    assert mp4meta.is_mp4_file(path) and jmp4.is_mp4_file(path)
+    assert not mp4meta.is_mp4_file(mp3) and not jmp4.is_mp4_file(mp3)
+    tags, jtags = mp4meta.ReplayGainTags(), jmp4.ReplayGainTags()
+    for t in (tags, jtags):
+        t.set_track(-6.5, 0.98765)
+        t.set_album(-7.25, 0.99)
+    written = mp4meta.write_replaygain_tags_to_data(m4a, tags)
+    assert written == jmp4.write_replaygain_tags_to_data(m4a, jtags) != m4a
+    _same(mp4meta.read_replaygain_tags_from_data(written),
+          jmp4.read_replaygain_tags_from_data(written), "tags")
+    mine, theirs = tmp_path / "m.m4a", tmp_path / "t.m4a"
+    for p, mod, t in ((mine, mp4meta, tags), (theirs, jmp4, jtags)):
+        p.write_bytes(m4a)
+        mod.write_replaygain_tags(p, t)
+        mod.delete_replaygain_tags(p)
+    assert mine.read_bytes() == theirs.read_bytes()
+
+
+def test_find_max_amplitude_matches_the_original(tmp_path):
+    """The one bitstream function that differs: the gains read equal, the
+    decoded peak (the port's pipeline on the CPU) within rtol 2e-4, and
+    without a card the default device raises instead of estimating."""
+    import torch
+
+    path = tmp_path / "t.mp3"
+    path.write_bytes(_clip(smoke.TRANSIENT_TRACK))
+    peak, max_gain, min_gain = tbitstream.find_max_amplitude(path, device="cpu")
+    j_peak, j_max, j_min = bitstream.find_max_amplitude(path)
+    assert (max_gain, min_gain) == (j_max, j_min)
+    np.testing.assert_allclose(peak, j_peak, rtol=2e-4)
+    bad = tmp_path / "bad.mp3"
+    bad.write_bytes(b"\0" * 4096)
+    with pytest.raises(tbitstream.Mp3Error):
+        tbitstream.find_max_amplitude(bad, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(replaygain.DeviceUnavailable):
+            tbitstream.find_max_amplitude(path)

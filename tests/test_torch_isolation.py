@@ -49,7 +49,8 @@ def test_scan_covers_the_port():
     files = _port_files()
     assert "chip_smoke.py" in files and len(files) > 25
     for must in ("analysis.py", "native.py", "decode/frontend.py",
-                 "decode/class_core.py", "parallel/runner.py"):
+                 "decode/class_core.py", "parallel/runner.py", "scan.py", "cli.py",
+                 "bitstream.py", "ape.py", "id3v2.py", "mp4meta.py"):
         assert os.path.join(PORT, must) in files, must
 
 

@@ -173,9 +173,10 @@ def test_runner_matches_jax(batches, name):
     assert hist.shape == (bsz, hi.HISTOGRAM_SIZE)
     idx = np.array([round(v * 100) + 2000 for v in louds])
     for fused in (False, True):
-        _assert_close_to_jax(hist.numpy(), idx, peaks, jax_out[fused], bsz)
+        _assert_close_to_jax(hist, idx, peaks, jax_out[fused], bsz)
     t = runner.last_timings
-    assert set(t) == {"prep_s", "h2d_s", "device_s"}
+    assert set(t) == {"prep_s", "h2d_s", "device_ms"}
+    assert runner.timings == [t]
     assert all(v >= 0 for v in t.values())
     # The Runner reuses one LightTail per format.
     assert runner.tail(sr, nch) is runner.tail(sr, nch)
