@@ -19,20 +19,31 @@ port's two routes over 64 copies of a 60 s, 44.1 kHz joint-stereo
 before it and read just after; the light device phase split by stage
 (CUDA events, median of 3); then the unfused light tail against the
 host-decoded route (exact), decode_file and the analysis entry points on
-committed clips; then the library scan, this port's main path for a
-library: scan.scan_files over 514 files (384 copies of the bench track, 64
-of a 3 s transient clip, 64 of a 3 s 22.05 kHz mono clip, one file of
-seeded random bytes, one ADTS file) on the pipelined Runner, every copy
-held to its single-track result, the K1/K2 launches counted per device
-batch, the resume from its manifest, and cli.main -a over 128 of the
-files. Every check raises on failure; there is no CPU branch.
+committed clips; then the AAC/M4A path (no TPU kernel lies on it, so no
+kernel of this port does: torch ops, GEMMs on cuBLAS in full f32): 64
+copies of a 60 s, 44.1 kHz stereo 192 kbps M4A, the JAX bench's AAC track,
+through the device-prep ("q") route of the same Runner, held against the
+host-requant ("f16") route on the card and against the port's CPU run,
+its device phase split by stage, the short clips that reach EIGHT_SHORT,
+PNS, fallback and intensity rows, and the entry points on them; then the
+library scan, this port's main path for a library: scan.scan_files over
+706 files (384 copies of the MP3 bench track, 64 of a 3 s transient clip,
+64 of a 3 s 22.05 kHz mono clip, one file of seeded random bytes, one
+zero-payload ADTS file, 128 copies of the 60 s M4A and 64 of a 3 s
+transient M4A) on the pipelined Runner, every copy held to its
+single-track result, the K1/K2 launches counted per MP3 device batch, the
+resume from its manifest, and cli.main -a over 160 of the files; then
+cli.main -r and -x over 15 files, the per-track path, on the shared
+Runner and with a new Runner per file. Every check raises on failure;
+there is no CPU branch.
 Output, one phase per line:
 
   device / nvidia-smi name and power limit / build seconds and K1/K2/K3
   registers, shared memory and spills / K1, K2 and K3 agreement, times
   and bounds / light slice launch counts, CPU agreement / light stage
   split / heavy slice launch counts, CPU and light agreement, light
-  unfused == heavy / decode_file / entry-point gains / library scan /
+  unfused == heavy / decode_file / entry-point gains / AAC clips, slice,
+  routes, stages and entry points / library scan / per-track CLI walls /
   times / a JSON line of per-kernel results (K1/K2 launches from the
   library scan) /
   last line {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -81,11 +92,13 @@ def bound_of(n_bytes: float, flops: float = 0.0) -> tuple[float, str]:
 
 LIBRARY_SEED = 5
 LIBRARY_COPIES = {"bench": 384, "transient": 64, "mono": 64}
+AAC_LIBRARY_COPIES = {"aacbench": 128, "aactransient": 64}
 
 
 def _adts_stream(frames: int = 3, payload: int = 200) -> bytes:
     """ADTS frames (AAC-LC, 44.1 kHz, stereo headers, zero payloads): a file
-    the scan must route to the AAC path and fail there."""
+    the scan must route to the AAC path, which decodes it as the JAX
+    package does: three silent frames."""
     n = 7 + payload
     head = bytes([0xFF, 0xF1, 0x50, 0x80 | ((n >> 11) & 3), (n >> 3) & 0xFF,
                   ((n & 7) << 5) | 0x1F, 0xFC])
@@ -105,11 +118,13 @@ def _union_ms(intervals) -> float:
     return total
 
 
-def library_phase(dev, card, bench_u, bench_loud, bench_peak, bench_windows, clips):
-    """scan_files over a 514-file library on the card (384 copies of the
-    bench track, 64 of the 3 s transient clip, 64 of the 3 s 22.05 kHz mono
-    clip, as symlinks; a file of seeded random bytes; an ADTS file), its
-    resume from the manifest, and cli.main -a over 128 of the files.
+def library_phase(dev, card, bench_u, bench_loud, bench_peak, bench_windows, clips,
+                  aac_clips):
+    """scan_files over a 706-file library on the card (384 copies of the
+    MP3 bench track, 64 of the 3 s transient clip, 64 of the 3 s 22.05 kHz
+    mono clip, 128 of the 60 s M4A and 64 of the 3 s transient M4A, as
+    symlinks; a file of seeded random bytes; a zero-payload ADTS file), its
+    resume from the manifest, and cli.main -a over 160 of the files.
     Returns the scan's K1/K2 launch counts."""
     import contextlib
     import io
@@ -121,7 +136,8 @@ def library_phase(dev, card, bench_u, bench_loud, bench_peak, bench_windows, cli
     import numpy as np
     import torch
 
-    from mp3rgain_tpu_torch import analysis, cli, scan
+    from mp3rgain_tpu_torch import aac, analysis, cli, scan
+    from mp3rgain_tpu_torch.decode import aac_frontend as af
     from mp3rgain_tpu_torch.decode import class_core as cc
     from mp3rgain_tpu_torch.decode import entropy_kernel as ek
     from mp3rgain_tpu_torch.decode import hybrid_kernel as hk
@@ -145,14 +161,26 @@ def library_phase(dev, card, bench_u, bench_loud, bench_peak, bench_windows, cli
         with open(adts, "wb") as f:
             f.write(_adts_stream())
         paths += [noise, adts]
+        mp3_paths = list(paths)
+        aac_seconds = 3 * 1024 / 44100  # the ADTS file's three silent frames
+        for kind, src in zip(AAC_LIBRARY_COPIES, aac_clips):
+            for i in range(AAC_LIBRARY_COPIES[kind]):
+                paths.append(os.path.join(root, f"{kind}_{i:03d}.m4a"))
+                os.symlink(src, paths[-1])
+            aac_seconds += AAC_LIBRARY_COPIES[kind] * aac.audio_seconds(af.unpack_file_q(src))
         manifest = os.path.join(root, "scan.json")
 
         runner = pr.Runner(dev)
         t0 = time.perf_counter()
         for fmt in ((44100, 2), (22050, 1)):
             runner.tail(*fmt)
+        runner.aac_tail(44100, 2)
         torch.cuda.synchronize()
         tails_s = time.perf_counter() - t0
+        first_done = {}  # file type -> when the scan reported its first file
+
+        def progress(path):
+            first_done.setdefault(os.path.splitext(path)[1], time.perf_counter())
 
         torch.cuda.reset_peak_memory_stats()
         for c in (ek.COUNT, hk.COUNT, cc.COUNT):
@@ -162,8 +190,10 @@ def library_phase(dev, card, bench_u, bench_loud, bench_peak, bench_windows, cli
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 t0 = time.perf_counter()
-                res = scan.scan_files(paths, manifest_path=manifest, runner=runner)
+                res = scan.scan_files(paths, manifest_path=manifest, runner=runner,
+                                      progress_cb=progress)
                 wall = time.perf_counter() - t0
+                mp3_wall = first_done[".mp3"] - t0  # the MP3s are scanned first
                 n_scan = len(caught)
                 # A control: one deliberate sync on another thread is seen.
                 ctl = threading.Thread(target=lambda: torch.zeros(1, device=dev).item())
@@ -183,26 +213,40 @@ def library_phase(dev, card, bench_u, bench_loud, bench_peak, bench_windows, cli
             where = f"{os.path.basename(w.filename)}:{w.lineno}"
             syncs[where] = syncs.get(where, 0) + 1
 
-        # Outcomes: 512 tracks, and the two bad files failed with their errors.
-        n_tracks = sum(LIBRARY_COPIES.values())
-        ok = [p for p in paths if not isinstance(res.results[p], Exception)]
+        # Outcomes: 512 MP3 tracks and 192 AAC ones; the random bytes fail
+        # alone; the zero-payload ADTS file is three silent AAC frames, as
+        # in the JAX package: an empty histogram, loudness -20 dB, peak 0.
+        n_mp3 = sum(LIBRARY_COPIES.values())
+        n_aac = sum(AAC_LIBRARY_COPIES.values())
+        n_tracks = n_mp3 + n_aac
+        ok = [p for p in paths if p != adts and not isinstance(res.results[p], Exception)]
         check(len(ok) == n_tracks and len(res.results) == len(paths),
               f"{len(ok)} of {n_tracks} tracks ok")
-        err_noise, err_adts = res.results[noise], res.results[adts]
+        err_noise, silent = res.results[noise], res.results[adts]
         check(isinstance(err_noise, RuntimeError) and "No valid MP3 frames" in str(err_noise),
               f"random bytes fail as no MP3 ({err_noise!r})")
-        check(isinstance(err_adts, NotImplementedError) and "item 10" in str(err_adts),
-              f"the ADTS file fails as AAC, not yet ported ({err_adts!r})")
+        check(not isinstance(silent, Exception)
+              and (silent.file_type, silent.loudness_db, silent.peak, silent.sample_rate)
+              == ("aac", -20.0, 0.0, 44100) and not res.histograms[adts].any(),
+              f"the zero-payload ADTS file analyses as silent AAC ({silent!r})")
+        check(all(res.results[p].file_type == ("aac" if p.endswith(".m4a") else "mp3")
+                  for p in ok), "file types")
         n_batches = len(timings)
-        check(launches["entropy_decode_rows"] == n_batches
-              and launches["requant_stereo"] == n_batches,
-              f"K1 and K2 launched once per device batch ({launches}, {n_batches} batches)")
+        mp3_batches = sum(t["route"] == "light" for t in timings)
+        aac_batches = sum(t["route"] == "aac_q" for t in timings)
+        check(mp3_batches + aac_batches == n_batches
+              and aac_batches >= -(-(n_aac + 1) // (4 * scan.BATCH_THRESHOLD)),
+              f"routes of the {n_batches} batches: {[t['route'] for t in timings]}")
+        check(launches["entropy_decode_rows"] == mp3_batches
+              and launches["requant_stereo"] == mp3_batches,
+              f"K1 and K2 launched once per MP3 device batch ({launches}, {mp3_batches})")
         check(plain == 0, f"no plain-version calls on CUDA ({plain})")
 
         # Every copy against its reference.
         bench_idx = round(bench_loud * 100) + 2000
         refs = {"bench": (bench_windows, bench_idx, bench_peak)}
-        for kind, clip in (("transient", transient_path), ("mono", mono_path)):
+        for kind, clip in (("transient", transient_path), ("mono", mono_path),
+                           *zip(AAC_LIBRARY_COPIES, aac_clips)):
             r = analysis.analyze_track_internal(clip, device=dev)
             refs[kind] = (int(r.histogram.sum()), round(r.result.loudness_db * 100) + 2000,
                           r.result.peak)
@@ -227,7 +271,8 @@ def library_phase(dev, card, bench_u, bench_loud, bench_peak, bench_windows, cli
         n_before = len(runner.timings)
         k1_before = ek.COUNT.kernel
         again = scan.scan_files(paths, manifest_path=manifest, runner=runner)
-        check(again.resumed == n_tracks, f"resumed {again.resumed} of {n_tracks}")
+        check(again.resumed == n_tracks + 1,
+              f"resumed {again.resumed} of {n_tracks + 1}, AAC records included")
         check(len(runner.timings) == n_before and ek.COUNT.kernel == k1_before,
               "no device batch on resume")
         for p in ok:
@@ -245,15 +290,17 @@ def library_phase(dev, card, bench_u, bench_loud, bench_peak, bench_windows, cli
             for n in (1, default, default, 1):
                 pr.PREP_THREADS = n
                 t0 = time.perf_counter()
-                pr.analyze_library(paths, runner=runner)
+                pr.analyze_library(mp3_paths, runner=runner)
                 turns[n].append(time.perf_counter() - t0)
         finally:
             pr.PREP_THREADS = default
 
-        # The CLI's album path over 128 of the files, in this process.
-        by_kind = {k: [p for p in ok if os.path.basename(p).startswith(k)]
-                   for k in LIBRARY_COPIES}
-        album_files = by_kind["bench"][:64] + by_kind["transient"][:32] + by_kind["mono"][:32]
+        # The CLI's album path over 160 of the files, in this process.
+        by_kind = {k: [p for p in ok if os.path.basename(p).startswith(k + "_")]
+                   for k in (*LIBRARY_COPIES, *AAC_LIBRARY_COPIES)}
+        album_files = (by_kind["bench"][:64] + by_kind["transient"][:32]
+                       + by_kind["mono"][:32] + by_kind["aacbench"][:16]
+                       + by_kind["aactransient"][:16])
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             rc = cli.main(["-a", "--dry-run", "--batch", "-o", "json", "--manifest",
@@ -268,32 +315,330 @@ def library_phase(dev, card, bench_u, bench_loud, bench_peak, bench_windows, cli
         shutil.rmtree(root, ignore_errors=True)
 
     audio_h = res.audio_seconds / 3600.0
-    med = {k: statistics.median(t[k] for t in timings) for k in ("prep_s", "h2d_s", "device_ms")}
+    aac_h = aac_seconds / 3600.0
+    mp3_h = audio_h - aac_h
+    aac_wall = wall - mp3_wall
+
+    def medians(route):
+        return {k: statistics.median(t[k] for t in timings if t["route"] == route)
+                for k in ("prep_s", "h2d_s", "device_ms")}
+
+    med, med_aac = medians("light"), medians("aac_q")
     serial = sum(t["prep_s"] + t["h2d_s"] + t["device_ms"] / 1e3 for t in timings)
     busy_share = _union_ms(busy) / (wall * 1e3)
     findings = ("none" if not syncs else
                 "; ".join(f"{k} x{v}" for k, v in sorted(syncs.items())))
-    print(f"library {card}: scan_files over {len(paths)} files ({len(ok)} tracks, "
-          f"2 failed as expected), {n_batches} device batches, {audio_h:.3f} audio-hours "
+    print(f"library {card}: scan_files over {len(paths)} files ({n_mp3} MP3 and {n_aac} "
+          f"AAC tracks, the random bytes failed and the zero-payload ADTS file was silent "
+          f"as expected), {n_batches} device batches, {audio_h:.3f} audio-hours "
           f"in {wall:.3f} s: real-time factor {res.audio_seconds / wall:.0f}x, "
-          f"{audio_h / wall:.3f} audio-hours/s; per batch (median) prep "
+          f"{audio_h / wall:.3f} audio-hours/s; MP3 part: {mp3_h:.3f} audio-hours in "
+          f"{mp3_wall:.3f} s ({mp3_h * 3600 / mp3_wall:.0f}x, {mp3_h / mp3_wall:.3f} "
+          f"audio-hours/s), {mp3_batches} batches, per batch (median) prep "
           f"{med['prep_s']:.4f} s, staging and upload {med['h2d_s']:.4f} s, device "
-          f"{med['device_ms']:.3f} ms; device busy {busy_share:.1%} of the wall; serial "
+          f"{med['device_ms']:.3f} ms; AAC part: {aac_h:.3f} audio-hours in {aac_wall:.3f} s "
+          f"({aac_h * 3600 / aac_wall:.0f}x, {aac_h / aac_wall:.3f} audio-hours/s), "
+          f"{aac_batches} batches, per batch (median) prep {med_aac['prep_s']:.4f} s, "
+          f"staging and upload {med_aac['h2d_s']:.4f} s, device "
+          f"{med_aac['device_ms']:.3f} ms; device busy {busy_share:.1%} of the wall; serial "
           f"sum of prep + upload + device {serial:.3f} s vs wall {wall:.3f} s "
           f"(overlap {serial / wall:.2f}x); peak device memory {peak_gb:.3f} GB; "
-          f"os.cpu_count() {os.cpu_count()}; LightTails built before in {tails_s:.3f} s; "
+          f"os.cpu_count() {os.cpu_count()}; LightTails and the AacTail built before in "
+          f"{tails_s:.3f} s; "
           f"sync-debug findings during the scan: {findings} (a deliberate .item() on "
           f"another thread {'was' if control_seen else 'was NOT'} detected); launches {launches}, plain "
           f"calls {plain}; worst index diff {worst['index']}, worst peak rel diff "
-          f"{worst['peak_rel']:.2e}; resume: {again.resumed} resumed, 0 batches; cli -a "
+          f"{worst['peak_rel']:.2e}; resume: {again.resumed} resumed (AAC records included), 0 batches; cli -a "
           f"over {len(album_files)} files: album gain {doc['album']['gain_db']:.2f} dB vs "
           f"album_union {want_gain:.2f} dB", flush=True)
-    print(f"library prep threads {card}: analyze_library over the same {len(paths)} "
-          f"files in turns: " + "; ".join(
+    print(f"library prep threads {card}: analyze_library over the {len(mp3_paths)} "
+          f"MP3-side files in turns: " + "; ".join(
               f"{n} prep thread{'s' if n > 1 else ''} (walk pool "
               f"{max((os.cpu_count() or 1) - n, 1)}) {', '.join(f'{t:.3f}' for t in ts)} s"
               for n, ts in turns.items()), flush=True)
     return {"launches": launches}
+
+
+AAC_STAGES = ["nibble unpack + escapes", "requantize", "PNS", "stereo", "fallback merge",
+              "long GEMM + windows", "short GEMMs", "overlap-add", "clip + peak", "IIR",
+              "histogram + index"]
+
+
+def _index(loudness_db: float) -> int:
+    return round(loudness_db * 100) + 2000
+
+
+def aac_phase(dev, card, runner, mp3_clip):
+    """The AAC/M4A path on the card: the committed clips reach their
+    branches; 64 copies of the 60 s M4A through the Runner's device-prep
+    route (wall, split, peak memory), against the host-requant route on the
+    card and against the CPU; the device phase by stage; the entry points.
+    Returns (the 60 s and the transient clip's paths, the slice's line for
+    the times section)."""
+    import numpy as np
+    import torch
+
+    from mp3rgain_tpu_torch import aac, analysis
+    from mp3rgain_tpu_torch.decode import aac_frontend as af
+    from mp3rgain_tpu_torch.decode import aac_prep
+    from mp3rgain_tpu_torch.decode import class_core as cc
+    from mp3rgain_tpu_torch.decode import entropy_kernel as ek
+    from mp3rgain_tpu_torch.decode import hybrid_kernel as hk
+    from mp3rgain_tpu_torch.decode.aac_synthesis import EIGHT_SHORT
+    from mp3rgain_tpu_torch.parallel import runner as pr
+    from mp3rgain_tpu_torch.testing import make_smoke_data as smoke
+
+    def path(name):
+        return os.path.join(smoke.DATA_DIR, name)
+
+    # --- the clips reach their branches ---------------------------------------
+    want = {  # clip -> (sample rate, channels, the branches it must reach)
+        smoke.AAC_BENCH_TRACK: (44100, 2, ("short", "fallback", "pns", "ms", "escapes")),
+        smoke.AAC_TRANSIENT_TRACK: (44100, 2, ("short", "fallback", "pns", "intensity")),
+        smoke.AAC_PNS_TRACK: (44100, 2, ("pns", "intensity", "ms")),
+        smoke.AAC_ADTS_TRACK: (22050, 1, ("pns", "escapes")),
+        smoke.AAC_TWO_TRACKS: (44100, 2, ("pns",)),
+    }
+    seen = []
+    for name, (sr, nch, branches) in want.items():
+        u = af.unpack_file_q(path(name))
+        reach = {"short": int((u.info[:, af.WINDOW_SEQ] == EIGHT_SHORT).sum()),
+                 "fallback": len(u.fbrows), "pns": int((u.btype == 2).sum()),
+                 "intensity": int((u.btype >= 3).sum()), "ms": int(u.msf.sum()),
+                 "escapes": len(u.esc_idx)}
+        check((u.sample_rate, u.n_channels) == (sr, nch) and u.n > 0,
+              f"{name} unpacks as {sr} Hz, {nch} channel(s)")
+        check(all(reach[b] > 0 for b in branches), f"{name} reaches {branches}: {reach}")
+        seen.append(f"{name} {u.n} rows " + " ".join(f"{k} {v}" for k, v in reach.items()))
+    second = af.unpack_file_q(path(smoke.AAC_TWO_TRACKS), track_index=1)
+    check((second.sample_rate, second.n_channels) == (32000, 1), "the M4A's second track")
+    print(f"aac clips: {'; '.join(seen)}; {smoke.AAC_TWO_TRACKS} track 1: "
+          f"{second.n} rows at 32000 Hz mono", flush=True)
+
+    # --- bit-exact pieces on the card -------------------------------------------
+    prep_cpu, prep_dev = aac_prep.AacPrep(44100), aac_prep.AacPrep(44100).to(dev)
+    check(torch.equal(prep_dev.noise_uniform(4099).cpu(), prep_cpu.noise_uniform(4099)),
+          "the PNS noise hash on the card equals the CPU's bit for bit")
+    allb = torch.arange(-128, 128, dtype=torch.int8)
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(
+        aac_prep.unpack_nibbles(allb.to(dev)), aac_prep.unpack_nibbles(allb))),
+        "the nibble unpack on the card equals the CPU's over all 256 bytes")
+
+    # --- the slice: 64 x 60 s through the q route -------------------------------
+    bench = path(smoke.AAC_BENCH_TRACK)
+    uq = af.unpack_file_q(bench)
+    uf = af.unpack_file(bench, f16=True)
+    track_s = aac.audio_seconds(uq)
+    audio_s = BATCH_TRACKS * track_s
+    tail = runner.aac_tail(44100, 2)
+    for _ in range(2):  # warm-up, once per pinned staging slot
+        aac.analyze_batch_q([uq] * BATCH_TRACKS, 44100, 2, runner=runner)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in (ek.COUNT, hk.COUNT, cc.COUNT):
+        c.reset()
+    t0 = time.perf_counter()
+    hist, louds, peaks = aac.analyze_batch_q([uq] * BATCH_TRACKS, 44100, 2, runner=runner)
+    wall_s = time.perf_counter() - t0
+    timing = runner.last_timings
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(timing["route"] == "aac_q", f"route {timing['route']}")
+    check(hist.shape == (BATCH_TRACKS, 12000) and bool(np.isfinite(louds).all())
+          and bool(np.isfinite(peaks).all()) and bool((peaks > 0).all()),
+          "AAC slice: finite results of the expected shape")
+    check(bool((hist.sum(axis=1) == hist[0].sum()).all())
+          and int(np.abs(np.array([_index(v) for v in louds]) - _index(louds[0])).max()) <= 1
+          and bool(np.allclose(peaks, peaks[0], rtol=1e-5)),
+          "the 64 copies agree with each other")
+    check(ek.COUNT.kernel + hk.COUNT.kernel + cc.COUNT.kernel == 0
+          and ek.COUNT.plain + hk.COUNT.plain + cc.COUNT.plain == 0,
+          "the AAC path reaches none of K1, K2, K3 nor their plain versions")
+    prepared = runner.prepare_aac_q([uq] * BATCH_TRACKS, 44100, 2)
+    rows = prepared.arrays[0].shape[0] * prepared.arrays[0].shape[1]
+    upload_mb = sum(a.nbytes for a in prepared.arrays) / 1e6
+
+    # The host-requant route on the card, the same batch.
+    for _ in range(2):
+        f_hist, f_louds, f_peaks = aac.analyze_batch([uf] * BATCH_TRACKS, 44100, 2,
+                                                     runner=runner)
+    f_timing = runner.last_timings
+    check(f_timing["route"] == "aac", f"route {f_timing['route']}")
+    d_loud = float(np.abs(louds - f_louds).max())
+    d_peak = float(np.abs(peaks / f_peaks - 1).max())
+    check(bool((hist.sum(axis=1) == f_hist.sum(axis=1)).all()) and d_loud <= 0.02 + 1e-9
+          and d_peak <= 1e-3,
+          f"q route against the f16 route: loudness {d_loud} dB, peak rel {d_peak}")
+
+    # The card against the port's CPU run, q route, track by track.
+    cpu = pr.Runner("cpu")
+    vs_cpu = []
+    for name in (smoke.AAC_BENCH_TRACK, smoke.AAC_TRANSIENT_TRACK, smoke.AAC_PNS_TRACK,
+                 smoke.AAC_ADTS_TRACK):
+        u = af.unpack_file_q(path(name))
+        args = ([u], u.sample_rate, u.n_channels)
+        g_hist, g_louds, g_peaks = aac.analyze_batch_q(*args, runner=runner)
+        c_hist, c_louds, c_peaks = aac.analyze_batch_q(*args, runner=cpu)
+        d_idx = abs(_index(g_louds[0]) - _index(c_louds[0]))
+        check(int(g_hist.sum()) == int(c_hist.sum()) and d_idx <= 2
+              and bool(np.isclose(g_peaks[0], c_peaks[0], rtol=2e-4, atol=1e-6)),
+              f"{name} on the card against the CPU: index {_index(g_louds[0])} vs "
+              f"{_index(c_louds[0])}, peak {g_peaks[0]} vs {c_peaks[0]}")
+        vs_cpu.append(f"{name} index diff {d_idx}, peak rel diff "
+                      f"{abs(g_peaks[0] / c_peaks[0] - 1):.1e}")
+    print(f"aac slice: Runner q route {BATCH_TRACKS} x {track_s:.2f} s on {dev}: {rows} "
+          f"padded frame-channel rows, upload {upload_mb:.1f} MB, K1/K2/K3 launches 0; "
+          f"track 0 gain {64.82 - louds[0]:.2f} dB, peak {peaks[0]:.6f}, windows "
+          f"{int(hist[0].sum())}; against the f16 route on the card: max loudness diff "
+          f"{d_loud:.3f} dB, max peak rel diff {d_peak:.1e}; against the CPU (q route): "
+          f"{'; '.join(vs_cpu)}", flush=True)
+
+    # --- the device phase by stage ------------------------------------------------
+    dev_args = [pr._to_device(a, dev) for a in prepared.arrays]
+    runs = []
+    for _ in range(3):
+        events = []
+
+        def mark(stage):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((stage, ev))
+
+        torch.cuda.synchronize()
+        mark("start")
+        aac.analysis_core_q(tail, *dev_args, **prepared.shapes, on_stage=mark)
+        torch.cuda.synchronize()
+        runs.append({st: a.elapsed_time(b)
+                     for (_, a), (st, b) in zip(events, events[1:])})
+    del dev_args
+    torch.cuda.empty_cache()
+    stage_ms = {st: float(np.median([r[st] for r in runs])) for st in runs[0]}
+    check(list(stage_ms) == AAC_STAGES, f"stages {list(stage_ms)}")
+    total_ms = sum(stage_ms.values())
+    counts = prepared.shapes["short_counts"]
+    print(f"aac stages {card} (CUDA events, median of 3; {sum(counts)} EIGHT_SHORT rows "
+          f"by window pair {counts}, {prepared.arrays[4].shape[0]} fallback rows): "
+          + "; ".join(f"{st} {stage_ms[st]:.3f} ms ({stage_ms[st] / total_ms:.1%})"
+                      for st in AAC_STAGES) + f"; sum {total_ms:.3f} ms", flush=True)
+
+    # --- entry points ------------------------------------------------------------------
+    ent = []
+    for name, track in ((smoke.AAC_TRANSIENT_TRACK, None), (smoke.AAC_PNS_TRACK, None),
+                        (smoke.AAC_ADTS_TRACK, None), (smoke.AAC_TWO_TRACKS, 1)):
+        r = analysis.analyze_track_internal(path(name), track, device=dev)
+        c = analysis.analyze_track_internal(path(name), track, device="cpu")
+        check(r.result.file_type == "aac" and r.audio_seconds == c.audio_seconds > 0
+              and r.result.sample_rate == c.result.sample_rate, f"{name} entry point")
+        # The card takes the q route and the CPU the f16 route by default.
+        check(abs(r.result.gain_db - c.result.gain_db) <= 0.02 + 1e-9
+              and abs(r.result.peak / c.result.peak - 1) <= 1e-3,
+              f"{name} gain {r.result.gain_db} vs CPU {c.result.gain_db}, peak "
+              f"{r.result.peak} vs {c.result.peak}")
+        pk = analysis.find_peak_amplitude(path(name), device=dev)
+        if track is None:
+            check(bool(np.isclose(pk.peak, r.result.peak, rtol=1e-6))
+                  and pk.peak <= aac.AAC_CLIP,
+                  f"{name} find_peak_amplitude {pk.peak} vs {r.result.peak}")
+        ent.append(f"{name}{'' if track is None else f' track {track}'} "
+                   f"{r.result.gain_db:.2f} dB (peak {r.result.peak:.4f})")
+    try:
+        analysis.analyze_track_internal(path(smoke.AAC_TWO_TRACKS), 2, device=dev)
+        check(False, "a track index past the last one raises")
+    except af.Mp4DemuxError as e:
+        check("out of range" in str(e), str(e))
+    dec = []
+    for name in (smoke.AAC_TRANSIENT_TRACK, smoke.AAC_ADTS_TRACK):
+        got, sr_g = aac.decode_file(path(name), device=dev)
+        ref, sr_w = aac.decode_file(path(name), device="cpu")
+        bound = 5e-4 * float(np.sqrt((ref ** 2).mean())) + 1e-5
+        err = float(np.abs(got - ref).max())
+        check(sr_g == sr_w and got.shape == ref.shape and err < bound,
+              f"aac.decode_file {name} on the card vs CPU ({err:.3e} >= {bound:.3e})")
+        dec.append(f"{name} {got.shape} max|err| {err:.2e} (bound {bound:.2e})")
+    files = [path(smoke.AAC_PNS_TRACK), mp3_clip, path(smoke.AAC_ADTS_TRACK)]
+    album = analysis.analyze_album(files, device=dev)
+    album_cpu = analysis.analyze_album(files, device="cpu")
+    check([t.file_type for t in album.tracks] == ["aac", "mp3", "aac"]
+          and abs(album.album_gain_db - album_cpu.album_gain_db) <= 0.02 + 1e-9,
+          f"album over AAC and MP3: {album.album_gain_db} vs CPU {album_cpu.album_gain_db}")
+    print(f"aac entry points (cuda, against cpu): {'; '.join(ent)}; album over "
+          f"AAC + MP3 + AAC {album.album_gain_db:.2f} dB, album peak "
+          f"{album.album_peak:.4f}; decode_file: {'; '.join(dec)}", flush=True)
+
+    dev_s = timing["device_ms"] / 1e3
+    split = timing["prep_s"] + timing["h2d_s"] + dev_s
+    line = (f"times {card}: aac slice wall {wall_s:.3f} s = host prep "
+            f"{timing['prep_s']:.3f} s + staging and upload {timing['h2d_s']:.3f} s + "
+            f"device {dev_s:.3f} s (sum {split:.3f}); {audio_s:.0f} s of audio, real-time "
+            f"factor {audio_s / wall_s:.0f}x; device-only {audio_s / dev_s:.0f}x; peak "
+            f"device memory {peak_gb:.3f} GB; f16 route: host prep "
+            f"{f_timing['prep_s']:.3f} s, staging and upload {f_timing['h2d_s']:.3f} s, "
+            f"device {f_timing['device_ms'] / 1e3:.3f} s")
+    return (bench, path(smoke.AAC_TRANSIENT_TRACK)), line
+
+
+def per_track_cli_phase(dev, card, mp3_clip, aac_clip):
+    """cli.main -r and -x over 15 files each: below scan.BATCH_THRESHOLD,
+    so the per-track path, which shares one Runner per device; beside it
+    the same 15 analyses with a new Runner per file, as the entry points
+    built one before they shared it."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mp3rgain_tpu_torch import analysis, cli, scan
+    from mp3rgain_tpu_torch.parallel import runner as pr
+
+    n = scan.BATCH_THRESHOLD - 1
+    root = tempfile.mkdtemp(prefix="mp3rgain-cli-")
+    try:
+        mp3s, m4as = [], []
+        for i in range(n):
+            mp3s.append(os.path.join(root, f"t{i:02d}.mp3"))
+            os.symlink(mp3_clip, mp3s[-1])
+            m4as.append(os.path.join(root, f"t{i:02d}.m4a"))
+            os.symlink(aac_clip, m4as[-1])
+
+        def run(argv):
+            out = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(argv)
+            wall = time.perf_counter() - t0
+            check(rc == 0, f"cli {argv[:3]} exit code {rc}")
+            return wall, out.getvalue()
+
+        pr._shared.clear()  # the first call builds the shared Runner
+        walls = {}
+        for label, files in (("-r mp3", mp3s), ("-r m4a", m4as)):
+            argv = ["-r", "--dry-run", "-o", "json", *files]
+            cold, text = run(argv)
+            doc = json.loads(text)
+            check(len(doc["files"]) == n
+                  and all(f["status"] in ("dry_run", "skipped") and "loudness_db" in f
+                          for f in doc["files"]), f"cli {label}: {doc['files'][:1]}")
+            walls[label] = (cold, run(argv)[0])
+        cold, text = run(["-x", "-o", "json", *mp3s])
+        check(len(json.loads(text)["files"]) == n, "cli -x")
+        walls["-x mp3"] = (cold, run(["-x", "-o", "json", *mp3s])[0])
+
+        fresh = {}
+        for label, files in (("mp3", mp3s), ("m4a", m4as)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for f in files:
+                analysis.analyze_track_internal(f, runner=pr.Runner(dev))
+            fresh[label] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"per-track cli {card}: cli.main over {n} x 60 s files on the per-track path, one "
+          f"shared Runner (first call, second call): "
+          + "; ".join(f"{k} {a:.3f} s, {b:.3f} s" for k, (a, b) in walls.items())
+          + f"; the same {n} analyze_track_internal calls with a new Runner per file: "
+          + "; ".join(f"{k} {v:.3f} s" for k, v in fresh.items()), flush=True)
 
 
 def main() -> None:
@@ -744,10 +1089,19 @@ def main() -> None:
           f"{album.album_gain_db:.2f} dB, album peak {album.album_peak:.4f}",
           flush=True)
 
-    # --- 9. the library scan -----------------------------------------------------
-    lib = library_phase(dev, card, u, louds[0], peaks[0], int(win_counts[0]), clips)
+    # --- 9. the AAC/M4A path -------------------------------------------------------
+    aac_clips, aac_times = aac_phase(dev, card, runner, clips[2])
 
-    # --- 10. times ---------------------------------------------------------------
+    # --- 10. the library scan ------------------------------------------------------
+    del runner
+    torch.cuda.empty_cache()
+    lib = library_phase(dev, card, u, louds[0], peaks[0], int(win_counts[0]), clips,
+                        aac_clips)
+
+    # --- 11. the per-track CLI path ---------------------------------------------------
+    per_track_cli_phase(dev, card, clips[0], aac_clips[0])
+
+    # --- 12. times ---------------------------------------------------------------
     dev_s = timing["device_ms"] / 1e3
     h_dev_s = h_timing["device_ms"] / 1e3
     split = timing["prep_s"] + timing["h2d_s"] + dev_s
@@ -767,6 +1121,7 @@ def main() -> None:
           f"plain {k3_plain_ms:.3f} ms, library {k3_lib_ms:.3f} ms; K3 probe shape "
           f"{k3p_ms:.3f} ms vs plain {k3p_plain_ms:.3f} ms, library {k3p_lib_ms:.3f} ms",
           flush=True)
+    print(aac_times, flush=True)
 
     kernels = [
         {"name": "entropy_decode_rows", "route": "cuda",

@@ -1,8 +1,8 @@
 // The torch port's native host core: C ABI of the MP3 gain surgery core
 // (bitstream.cpp), the APEv2 tag engine (ape.cpp), the MP3 decode
-// front-end (mp3dec.cpp) and the MP4 box engine (mp4box.cpp), copied from
-// the JAX package's mp3rgain_tpu/_native and trimmed to what these four
-// sources define. The port binds them with ctypes
+// front-end (mp3dec.cpp), the MP4 box engine (mp4box.cpp) and the AAC-LC
+// decode front-end (aacdec.cpp), copied from the JAX package's
+// mp3rgain_tpu/_native and trimmed to what these five sources define. The port binds them with ctypes
 // (mp3rgain_tpu_torch/native.py).
 //
 // All functions operate on caller-owned buffers; no file I/O and no global
@@ -129,6 +129,26 @@ int64_t mg_mp4_read_tags(const uint8_t* data, size_t len, uint8_t* out,
 int64_t mg_mp4_write_tags(const uint8_t* data, size_t len,
                           const uint8_t* tags_packed, size_t tags_len,
                           uint8_t* out, int64_t cap);
+
+// AAC-LC front-end (aacdec.cpp). Each unpacker walks an ADTS stream and
+// returns the channel-frame lane count; a count above cap (or, for the q
+// variant, *fb_count above fb_cap or *esc_count above esc_cap) means "call
+// again with that capacity". The f32 variant writes natural-order
+// requantized spectra, the f16 one block-scaled halves plus a per-lane
+// exponent, the q one quantized coefficients, band metadata, compacted
+// f16 fallback rows and the sparse escape sideband.
+int64_t mg_aac_unpack_adts(const uint8_t* data, size_t len, float* spec,
+                           int32_t* info, int64_t cap);
+int64_t mg_aac_unpack_adts_f16(const uint8_t* data, size_t len,
+                               uint16_t* spec16, int8_t* sexp,
+                               int32_t* info, int64_t cap);
+int64_t mg_aac_unpack_adts_q(const uint8_t* data, size_t len,
+                             int8_t* q8, int16_t* lvl, uint8_t* btype,
+                             uint8_t* msf, uint16_t* fb16, int8_t* fbexp,
+                             int64_t fb_cap, int64_t* fb_count,
+                             int32_t* esc_idx, int16_t* esc_val,
+                             int64_t esc_cap, int64_t* esc_count,
+                             int32_t* info, int64_t cap);
 
 #ifdef __cplusplus
 }  // extern "C"

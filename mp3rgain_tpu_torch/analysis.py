@@ -1,12 +1,13 @@
-"""ReplayGain analysis entry points: track, album and peak, for MP3.
+"""ReplayGain analysis entry points: track, album and peak.
 
-Counterpart of the MP3 part of mp3rgain_tpu/analysis.py, always on the
+Counterpart of mp3rgain_tpu/analysis.py. MP3 input always takes the
 raw-bits ("light") route: native light walk → parallel.runner.Runner
 (Huffman decode, requantize + stereo, hybrid and polyphase GEMMs, IIR,
 histogram on the device) → 95th-percentile readout; gain = PINK_REF −
-loudness. Every entry point runs on the CUDA card unless it is given
-device="cpu" (as the tests do); without a card it raises. AAC input is not
-ported yet (ROADMAP Queue 1 item 10) and raises NotImplementedError.
+loudness. MP4 containers and raw ADTS streams take the AAC path (aac.py).
+Every entry point runs on the CUDA card unless it is given device="cpu"
+(as the tests do); without a card it raises. Given no runner, the entry
+points share one Runner per device (parallel.runner.shared_runner).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 from .decode import frontend
 from .native import _inbuf, _lib
 from .ops import histogram as hi
-from .parallel.runner import SAMPLE_SCALE_16BIT, Runner
+from .parallel.runner import SAMPLE_SCALE_16BIT, Runner, shared_runner
 from .replaygain import (
     PINK_REF,
     AlbumGainResult,
@@ -33,9 +34,14 @@ class AnalysisError(RuntimeError):
 
 
 class TrackAnalysisInternal:
-    def __init__(self, result: ReplayGainResult, hist: np.ndarray):
+    def __init__(self, result: ReplayGainResult, hist: np.ndarray,
+                 audio_seconds: float = 0.0):
         self.result = result
         self.histogram = hist  # (12000,) int32, read back to the host
+        # Decoded duration where the analysis reports it (the AAC path; 0.0
+        # otherwise): the histogram undercounts it, because silent windows
+        # fall below the lowest bin and are dropped.
+        self.audio_seconds = audio_seconds
 
 
 def _sniff_adts(head: bytes) -> bool:
@@ -72,14 +78,6 @@ def _detect_file_type(path) -> str:
     return "aac" if _sniff_adts(head) else "mp3"
 
 
-def _require_mp3(path) -> None:
-    if _detect_file_type(path) == "aac":
-        raise NotImplementedError(
-            "AAC/M4A analysis is not ported to the torch package yet "
-            "(ROADMAP Queue 1 item 10); use mp3rgain_tpu.analysis"
-        )
-
-
 def _analyze_mp3(path, runner: Runner):
     """(hist (12000,) on the host, loudness dB, peak, sample rate)."""
     with open(path, "rb") as f:
@@ -95,14 +93,18 @@ def analyze_track_internal(path: os.PathLike | str,
                            track_index: int | None = None, *,
                            device="cuda", runner: Runner | None = None
                            ) -> TrackAnalysisInternal:
-    """One track on `runner` (a new Runner on `device` when None)."""
-    _require_mp3(path)
+    """One track on `runner` (the device's shared Runner when None)."""
+    runner = runner or shared_runner(device)
+    if _detect_file_type(path) == "aac":
+        from . import aac
+
+        return aac.analyze_track_internal(path, track_index, runner=runner)
     # MP3 streams have exactly one audio track.
     if track_index not in (None, 0):
         raise AnalysisError(
             f"Track index {track_index} out of range (file has 1 audio track(s))"
         )
-    hist, loudness_db, peak, sr = _analyze_mp3(path, runner or Runner(device))
+    hist, loudness_db, peak, sr = _analyze_mp3(path, runner)
     result = ReplayGainResult(
         loudness_db=loudness_db,
         gain_db=PINK_REF - loudness_db,
@@ -114,11 +116,11 @@ def analyze_track_internal(path: os.PathLike | str,
 
 
 def analyze_album(files, track_index: int | None = None, *,
-                  device="cuda") -> AlbumGainResult:
-    """Album analysis: union histogram (duration-weighted), peak max. The
-    tracks run one by one through one Runner, which keeps one LightTail
-    per format."""
-    runner = Runner(device)
+                  device="cuda", runner: Runner | None = None) -> AlbumGainResult:
+    """Album analysis over MP3 and AAC files: union histogram
+    (duration-weighted), peak max. The tracks run one by one through one
+    Runner, which keeps one set of tables per format."""
+    runner = runner or shared_runner(device)
     tracks = []
     album_peak = 0.0
     album_hist = np.zeros(hi.HISTOGRAM_SIZE, np.int64)
@@ -137,10 +139,15 @@ def analyze_album(files, track_index: int | None = None, *,
     )
 
 
-def find_peak_amplitude(path: os.PathLike | str, *,
-                        device="cuda") -> PeakAmplitudeResult:
-    """True decoded peak over all channels (unclipped, like mp3gain)."""
-    _require_mp3(path)
-    _, _, peak, sr = _analyze_mp3(path, Runner(device))
+def find_peak_amplitude(path: os.PathLike | str, *, device="cuda",
+                        runner: Runner | None = None) -> PeakAmplitudeResult:
+    """Decoded peak over all channels: unclipped for MP3 (like mp3gain),
+    clipped at ±1 for AAC (aac.AAC_CLIP)."""
+    runner = runner or shared_runner(device)
+    if _detect_file_type(path) == "aac":
+        from . import aac
+
+        return aac.find_peak_amplitude(path, runner=runner)
+    _, _, peak, sr = _analyze_mp3(path, runner)
     return PeakAmplitudeResult(peak=peak, peak_pcm=peak * SAMPLE_SCALE_16BIT,
                                sample_rate=sr)

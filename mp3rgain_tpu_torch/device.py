@@ -68,6 +68,14 @@ class LaunchCount:
         self.plain = 0
 
 
+def mark_stage(on_stage, name: str) -> None:
+    """Call on_stage(name), if a caller gave one: the device pipelines
+    report each stage as it has been enqueued (for per-stage timing with
+    CUDA events)."""
+    if on_stage is not None:
+        on_stage(name)
+
+
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
                  shape: tuple | None = None, device=None) -> None:
     """Raise ValueError unless `t` has the dtype, shape (None entries are

@@ -6,12 +6,14 @@ surgery core (bitstream.cpp) and the APEv2 tag engine (ape.cpp), which
 bitstream.py and ape.py reach through the wrappers below (analyze,
 apply_gain, read_gains, ape_parse, ...: the JAX package's, unchanged), the
 MP3 front-end (mp3dec.cpp: the full, light and packed light walks, the
-entropy packer, the lane sort, the light-track packer) and the MP4 box
-engine (mp4box.cpp: the sniff and the tag rewrite mp4meta.py calls).
+entropy packer, the lane sort, the light-track packer), the MP4 box
+engine (mp4box.cpp: the sniff and the tag rewrite mp4meta.py calls) and
+the AAC-LC front-end (aacdec.cpp: the f32, f16 and quantized ADTS
+unpackers decode/aac_frontend.py calls).
 tests/test_torch_host_copies.py holds its outputs equal to the JAX
 package's. Nothing here imports torch.
 
-g++ builds the four sources into mp3rgain_tpu_torch/_build/ (gitignored)
+g++ builds the five sources into mp3rgain_tpu_torch/_build/ (gitignored)
 on first use, never at import, and again when a source is newer than the
 library. The build is atomic: it compiles to a temporary name under a
 file lock and renames, so processes that race for the first build all
@@ -39,8 +41,8 @@ SRC_DIR = os.path.join(_HERE, "_native")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SO_PATH = os.path.join(BUILD_DIR, "libmp3rgain_torch_host.so")
 
-SOURCES = ["bitstream.cpp", "ape.cpp", "mp3dec.cpp", "mp4box.cpp"]
-HEADERS = ["native.h", "huffman_tables.h"]
+SOURCES = ["bitstream.cpp", "ape.cpp", "mp3dec.cpp", "mp4box.cpp", "aacdec.cpp"]
+HEADERS = ["native.h", "huffman_tables.h", "aac_tables.h"]
 
 CXXFLAGS = [
     "-O3",
@@ -120,6 +122,8 @@ class _MgAnalysis(ctypes.Structure):
 
 
 def _declare(lib: ctypes.CDLL) -> None:
+    i8p = ctypes.POINTER(ctypes.c_int8)
+    i16p = ctypes.POINTER(ctypes.c_int16)
     i32p = ctypes.POINTER(ctypes.c_int32)
     i64p = ctypes.POINTER(ctypes.c_int64)
     u16p = ctypes.POINTER(ctypes.c_uint16)
@@ -151,6 +155,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         ("mg_mp4_is_mp4", ctypes.c_int32, [_u8p, size]),
         ("mg_mp4_read_tags", i64, [_u8p, size, _u8p, i64]),
         ("mg_mp4_write_tags", i64, [_u8p, size, _u8p, size, _u8p, i64]),
+        ("mg_aac_unpack_adts", i64,
+         [_u8p, size, ctypes.POINTER(ctypes.c_float), i32p, i64]),
+        ("mg_aac_unpack_adts_f16", i64, [_u8p, size, u16p, i8p, i32p, i64]),
+        ("mg_aac_unpack_adts_q", i64,
+         [_u8p, size, i8p, i16p, _u8p, _u8p, u16p, i8p, i64, i64p,
+          i32p, i16p, i64, i64p, i32p, i64]),
     ):
         fn = getattr(lib, name)
         fn.restype = restype

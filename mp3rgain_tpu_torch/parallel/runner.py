@@ -17,6 +17,10 @@ IIR, histogram and index. light_tail(fused=False) feeds the light
 route's decode (K1 into track-major rows) into that same analysis_tail,
 so the two routes agree exactly.
 
+The two AAC routes (aac.py: device prep over quantized coefficients, and
+the host-requant f16 oracle) ride the same Runner: prepare_aac_q /
+prepare_aac, then launch and collect as for MP3.
+
 The host packers are copies of the JAX package's, held bit-identical by
 the tests. The per-track histograms, indices and peaks come back to the
 host. Tracks in one batch share a sample rate and channel count; their
@@ -42,6 +46,7 @@ from ..decode import frontend as fe
 from ..decode import hybrid_kernel as hk
 from ..decode.format_tables import SR_ROW
 from ..decode.synthesis import DecodeTables, GranuleBatch, _derive_fields, decode_batch
+from ..device import mark_stage as _stage
 from ..device import resolve_device
 from ..native import _lib
 from ..ops import histogram as hi
@@ -467,11 +472,6 @@ def _light_tail_unfused(tail: LightTail, spec_rows, big_end, c1end, counts,
                          valid_samples)
 
 
-def _stage(on_stage, name: str) -> None:
-    if on_stage is not None:
-        on_stage(name)
-
-
 def light_tail(tail: LightTail, spec_rows, big_end, c1end, counts, scf,
                srow, sdata, hrow, hdata, info, valid_samples, *, nb: int,
                g_max: int, fused: bool = True, on_stage=None):
@@ -574,11 +574,13 @@ _STAGING_SLOTS = 2  # pinned slots: one being copied while the next fills
 
 @dataclass
 class Prepared:
-    """A batch's host half (Runner.prepare_light / prepare_heavy): the
-    arrays to upload, the pooled ones among them (handed back to the pool
-    once staged) and the shape arguments of the device pipeline."""
+    """A batch's host half (Runner.prepare_light / prepare_heavy /
+    prepare_aac_q / prepare_aac): its route ("light", "heavy", "aac_q" or
+    "aac"), the arrays to upload, the pooled host buffers to hand back to
+    the pool once those are staged and the keyword arguments of the
+    device pipeline."""
 
-    light: bool
+    route: str
     sample_rate: int
     n_channels: int
     bsz: int
@@ -596,6 +598,7 @@ class _Batch:
     `events` (copy start, copy end, compute start, readback end) time it."""
 
     bsz: int
+    route: str
     prep_s: float
     h2d_s: float
     device_ms: float = 0.0
@@ -606,9 +609,10 @@ class _Batch:
 
 
 class Runner:
-    """Batched analysis on one device, over the light route
-    (dispatch_light / analyze_unpacked_light) or the host-decoded one
-    (dispatch_heavy / analyze_unpacked).
+    """Batched analysis on one device, over the MP3 light route
+    (dispatch_light / analyze_unpacked_light), the host-decoded one
+    (dispatch_heavy / analyze_unpacked) or the two AAC routes
+    (prepare_aac_q / prepare_aac, then launch).
 
     On a CUDA device a batch is pipelined: the host prep writes the pooled
     numpy buffers, which are copied into a pinned staging slot the runner
@@ -631,9 +635,11 @@ class Runner:
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
         self._tails: dict[tuple, LightTail] = {}
+        self._aac_tails: dict[tuple, nn.Module] = {}
+        self._aac_synthesis: nn.Module | None = None
         self._lock = threading.RLock()
-        # prep_s / h2d_s (host clock) and device_ms of the last collected
-        # batch, and of every collected batch in collect order.
+        # route, prep_s / h2d_s (host clock) and device_ms of the last
+        # collected batch, and of every collected batch in collect order.
         self.last_timings: dict | None = None
         self.timings: list[dict] = []
         # CUDA only: each collected batch's device-busy intervals (its
@@ -653,6 +659,25 @@ class Runner:
             if key not in self._tails:
                 self._tails[key] = LightTail(sample_rate, n_channels).to(self.device)
             return self._tails[key]
+
+    def aac_synthesis(self):
+        """The IMDCT tables (42 MB), built once per Runner."""
+        from ..decode.aac_synthesis import AacSynthesis
+
+        with self._lock:
+            if self._aac_synthesis is None:
+                self._aac_synthesis = AacSynthesis().to(self.device)
+            return self._aac_synthesis
+
+    def aac_tail(self, sample_rate: int, n_channels: int):
+        from ..aac import AacTail
+
+        key = (sample_rate, n_channels)
+        with self._lock:
+            if key not in self._aac_tails:
+                self._aac_tails[key] = AacTail(
+                    sample_rate, n_channels, self.aac_synthesis()).to(self.device)
+            return self._aac_tails[key]
 
     def _upload(self, arrays):
         """Host arrays → device tensors of the same shapes (uint16 as
@@ -694,17 +719,18 @@ class Runner:
             out.append(flat[off : off + a.nbytes].view(dt).view(a.shape))
         return out, (start, end)
 
-    def _launch(self, run, bsz: int, prep_s: float, h2d_s: float, copy,
+    def _launch(self, run, prepared: Prepared, h2d_s: float, copy,
                 album: torch.Tensor | None) -> _Batch:
         """Enqueue run() → (hist, loud_idx, peak) after the upload, the
         album sum (album += the batch's histograms, int64) and the
         readback."""
+        bsz, route, prep_s = prepared.bsz, prepared.route, prepared.prep_s
         if copy is None:
             t = time.perf_counter()
             hist, loud_idx, peak = run()
             if album is not None:
                 album += hist[:bsz].sum(dim=0, dtype=torch.int64)
-            return _Batch(bsz, prep_s, h2d_s, (time.perf_counter() - t) * 1e3,
+            return _Batch(bsz, route, prep_s, h2d_s, (time.perf_counter() - t) * 1e3,
                           result=(hist, loud_idx, peak))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -722,7 +748,7 @@ class Runner:
             if album is not None:
                 album += hist.sum(dim=0, dtype=torch.int64)
             end.record()
-        return _Batch(bsz, prep_s, h2d_s, hist=h_host, stats=s_host,
+        return _Batch(bsz, route, prep_s, h2d_s, hist=h_host, stats=s_host,
                       events=(copy[0], copy[1], start, end))
 
     def prepare_light(self, unpacked: list, sample_rate: int,
@@ -730,7 +756,7 @@ class Runner:
         """Host prep of a batch of same-format light-unpacked tracks."""
         t0 = time.perf_counter()
         prep, rest, g_max = prepare_batch_arrays_light(unpacked, n_channels, 1)
-        return Prepared(True, sample_rate, n_channels, len(unpacked),
+        return Prepared("light", sample_rate, n_channels, len(unpacked),
                         (prep.scalars, prep.buf, prep.meta, prep.inv) + tuple(rest),
                         (prep.buf, prep.meta, rest[1], rest[6]),
                         {"nb": prep.nb, "g_max": g_max}, time.perf_counter() - t0)
@@ -741,15 +767,57 @@ class Runner:
         (frontend.unpack_data)."""
         t0 = time.perf_counter()
         args = prepare_batch_arrays(unpacked, n_channels, 1)
-        return Prepared(False, sample_rate, n_channels, len(unpacked), args, (), {},
+        return Prepared("heavy", sample_rate, n_channels, len(unpacked), args, (), {},
                         time.perf_counter() - t0)
+
+    def prepare_aac_q(self, unpacked: list, sample_rate: int,
+                      n_channels: int) -> Prepared:
+        """Host prep of a batch of same-format quantized-unpacked AAC
+        tracks (aac_frontend.unpack_file_q) for the device-prep route. The
+        fallback rows' destinations and the EIGHT_SHORT row lists are
+        worked out here, where the window sequences are, so the device
+        reads no size back; the packer's fallback ladder padding and its
+        row-gather map are not uploaded."""
+        from .. import aac
+        from ..decode import aac_prep
+        from ..decode.aac_synthesis import short_rows
+
+        t0 = time.perf_counter()
+        (spec_q4, meta, esc_idx, esc_val, fb16, fbexp, fbmap, wseq, wshape,
+         valid) = aac.prepare_batch_arrays_aac_q(unpacked, n_channels)
+        fb_dst, fb_src = aac_prep.fallback_rows(fbmap)
+        rows, counts = short_rows(wseq, wshape, n_channels)
+        return Prepared(
+            "aac_q", sample_rate, n_channels, len(unpacked),
+            (spec_q4, meta, esc_idx, esc_val, fb16[fb_src], fbexp[fb_src],
+             fb_dst, wseq, wshape, valid, rows),
+            (spec_q4, meta, fbmap, wseq, wshape), {"short_counts": counts},
+            time.perf_counter() - t0)
+
+    def prepare_aac(self, unpacked: list, sample_rate: int,
+                    n_channels: int) -> Prepared:
+        """Host prep of a batch of same-format host-decoded AAC tracks
+        (aac_frontend.unpack_file) for the host-requant route."""
+        from .. import aac
+        from ..decode.aac_synthesis import short_rows
+
+        t0 = time.perf_counter()
+        spec, sexp, wseq, wshape, valid = aac.prepare_batch_arrays_aac(
+            unpacked, n_channels)
+        rows, counts = short_rows(wseq, wshape, n_channels)
+        return Prepared(
+            "aac", sample_rate, n_channels, len(unpacked),
+            (spec, sexp, wseq, wshape, valid, rows), (spec, sexp, wseq, wshape),
+            {"short_counts": counts}, time.perf_counter() - t0)
 
     def launch(self, prepared: Prepared, *, album: torch.Tensor | None = None):
         """Stage, upload and enqueue a prepared batch; returns a handle for
         collect(). album, a (12000,) int64 tensor on the device, gets the
         batch's histograms added on the device."""
+        aac_route = prepared.route in ("aac_q", "aac")
         with self._lock, _on(self.device):
-            tail = self.tail(prepared.sample_rate, prepared.n_channels)
+            tail = (self.aac_tail if aac_route else self.tail)(
+                prepared.sample_rate, prepared.n_channels)
             t1 = time.perf_counter()
             try:
                 dev, copy = self._upload(prepared.arrays)
@@ -757,13 +825,17 @@ class Runner:
                 # Staged (pinned copy or CPU clone): the pool may reuse them.
                 bufpool.give(*prepared.pooled)
             h2d_s = time.perf_counter() - t1
-            if prepared.light:
-                def run():
-                    return analysis_core_light(tail, *dev, **prepared.shapes)
+            if aac_route:
+                from .. import aac
+
+                core = aac.analysis_core_q if prepared.route == "aac_q" else aac.analysis_core
             else:
-                def run():
-                    return analysis_core(tail, *dev)
-            return self._launch(run, prepared.bsz, prepared.prep_s, h2d_s, copy, album)
+                core = analysis_core_light if prepared.route == "light" else analysis_core
+
+            def run():
+                return core(tail, *dev, **prepared.shapes)
+
+            return self._launch(run, prepared, h2d_s, copy, album)
 
     def dispatch_light(self, unpacked: list, sample_rate: int,
                        n_channels: int, *, album: torch.Tensor | None = None):
@@ -797,8 +869,8 @@ class Runner:
             device_ms = start.elapsed_time(end)
             self.busy_ms += [(self._origin.elapsed_time(a), self._origin.elapsed_time(b))
                              for a, b in ((copy_start, copy_end), (start, end))]
-        self.last_timings = {"prep_s": handle.prep_s, "h2d_s": handle.h2d_s,
-                             "device_ms": device_ms}
+        self.last_timings = {"route": handle.route, "prep_s": handle.prep_s,
+                             "h2d_s": handle.h2d_s, "device_ms": device_ms}
         self.timings.append(self.last_timings)
         louds = np.array([hi.index_to_loudness(i) for i in idx])
         return hist, louds, peaks
@@ -825,6 +897,23 @@ def _on(device: torch.device):
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
+_shared: dict[str, Runner] = {}
+_shared_lock = threading.Lock()
+
+
+def shared_runner(device="cuda") -> Runner:
+    """The process's one Runner for `device`, built at first use: the
+    entry points that are given no runner share it, so the tables of a
+    format, the copy stream and the pinned ring are built once per
+    device, not once per call (launches from several threads serialise
+    under the Runner's lock)."""
+    key = str(resolve_device(device))
+    with _shared_lock:
+        if key not in _shared:
+            _shared[key] = Runner(key)
+        return _shared[key]
+
+
 # ---------------------------------------------------------------------------
 # Library scans: bucketed, streamed batches with fault isolation.
 # ---------------------------------------------------------------------------
@@ -841,11 +930,11 @@ INFLIGHT_BYTES = 8_000_000_000
 
 
 def _result_of(fn, *args):
-    """(value, None) on success, (None, str(error)) on failure."""
+    """(value, None) on success, (None, the exception) on failure."""
     try:
         return fn(*args), None
     except Exception as e:  # per-file isolation
-        return None, str(e)
+        return None, e
 
 
 @dataclass
@@ -855,6 +944,7 @@ class TrackOutcome:
     error: str | None = None
     result: ReplayGainResult | None = None
     histogram: np.ndarray | None = None  # (12000,) int32, on the host
+    exception: BaseException | None = None  # what a failed file raised
 
 
 @dataclass
@@ -887,15 +977,77 @@ def _est_resident_bytes(ups) -> int:
     return int(1.3 * inputs + 1.3 * n * 576 * 2)
 
 
-def _chunk_size(members, max_batch: int, rows_cap: int) -> int:
+@dataclass
+class _Codec:
+    """What analyze_library needs to know of a file type: its unpack of
+    one path (raises when nothing decodes), the Runner's host prep, a
+    track's padded row count in a batch (_chunk_size), its seconds of
+    audio and its queued batch's device bytes (admission)."""
+
+    file_type: str
+    unpack: object
+    prepare: object
+    padded_rows: object
+    seconds: object
+    est_bytes: object
+
+
+def _mp3_codec(runner: Runner, device_entropy: bool) -> _Codec:
+    def unpack(path):
+        if device_entropy:
+            with open(path, "rb") as f:
+                u = fe.unpack_data_light_packed(f.read())
+        else:
+            u = fe.unpack_file(path)
+        if u.n == 0:
+            raise RuntimeError("No valid MP3 frames found")
+        return u
+
+    return _Codec(
+        "mp3", unpack,
+        runner.prepare_light if device_entropy else runner.prepare_heavy,
+        lambda u: _quantize_up(u.n, 2 * u.n_channels, base=512, ratio=1.3),
+        lambda u: (u.n // u.n_channels) * 576 / u.sample_rate,
+        _est_resident_bytes)
+
+
+def _aac_codec(runner: Runner, device_prep: bool | None) -> _Codec:
+    from .. import aac
+
+    device_prep = aac.use_device_prep(runner.device, device_prep)
+
+    def padded_rows(u):
+        nch = u.n_channels or 1
+        if device_prep:
+            return aac._f_max_q(u.n // nch * nch, nch)
+        return _quantize_up(max(u.n // nch * nch, nch), nch, base=128, ratio=1.3)
+
+    def est_bytes(ups):
+        # The upload: 4-bit spectra and band words (q), f16 spectra (f16).
+        per_row = 1024 // 2 + 2 * 52 if device_prep else 1024 * 2
+        return int(1.3 * per_row * sum(u.n for u in ups))
+
+    return _Codec(
+        "aac", lambda path: aac.unpack_for(path, None, device_prep),
+        runner.prepare_aac_q if device_prep else runner.prepare_aac,
+        padded_rows, aac.audio_seconds, est_bytes)
+
+
+# Rows cap of an AAC batch, in padded frame-channel lanes (bpad x f_max):
+# an H100 held 28.6 KB per lane at the q route's peak (9.9 GB at the 64 x
+# 60 s batch's 346,112 lanes, PERF.md), so this bounds a batch near 19 GB
+# whatever the tracks' lengths.
+AAC_ROWS_CAP = 660_000
+
+
+def _chunk_size(members, max_batch: int, rows_cap: int, padded_rows) -> int:
     """Largest prefix of the length-sorted members whose padded
-    (bpad x g_max) row footprint stays under rows_cap: every batch's
-    device memory is bounded by construction (the 64 x 60 s batch is
+    (bpad x padded_rows) row footprint stays under rows_cap: every batch's
+    device memory is bounded by construction (the 64 x 60 s MP3 batch is
     589,824 rows and peaks at 11.4 GB on the H100, PERF.md)."""
     c = min(len(members), max_batch)
     while c > 1:
-        u = members[c - 1][1]
-        g = _quantize_up(u.n, 2 * u.n_channels, base=512, ratio=1.3)
+        g = padded_rows(members[c - 1][1])
         bpad = next((b for b in _B_LADDER if b >= c), c)
         if bpad * g <= rows_cap:
             break
@@ -913,7 +1065,9 @@ def analyze_library(
     batch_cb=None,
     *,
     max_batch: int = 64,
-    rows_cap: int = 640_000,
+    rows_cap: int | None = None,
+    file_type: str = "mp3",
+    device_prep: bool | None = None,
     inflight_bytes: int = INFLIGHT_BYTES,
     pressure_backoff_s: float = 10.0,
 ) -> BatchResult:
@@ -931,7 +1085,11 @@ def analyze_library(
     results are collected one batch behind, with at most MAX_INFLIGHT
     batches in flight and, beyond two, only while their estimated bytes
     stay under inflight_bytes. device_entropy=False runs the host-decoded
-    route (Runner.prepare_heavy).
+    route (Runner.prepare_heavy). file_type="aac" scans AAC/M4A files the
+    same way (buckets, batches, admission, halving), on the route
+    device_prep names (aac.use_device_prep); rows_cap defaults to 640,000
+    granule-channel rows for MP3 and AAC_ROWS_CAP lanes for AAC. A
+    track's result does not depend on the batch it rode in.
 
     A file that fails to read or walk becomes a failed TrackOutcome and
     the scan goes on. A batch whose dispatch runs out of device memory
@@ -940,7 +1098,11 @@ def analyze_library(
     raises. With album=True the batches' histograms are summed on the
     device (int64). batch_cb, if given, is called with the TrackOutcomes
     of each collected batch (scan checkpointing)."""
-    runner = runner or Runner()
+    runner = runner or shared_runner()
+    codec = (_aac_codec(runner, device_prep) if file_type == "aac"
+             else _mp3_codec(runner, device_entropy))
+    if rows_cap is None:
+        rows_cap = AAC_ROWS_CAP if file_type == "aac" else 640_000
     t0 = time.monotonic()
     if wave_size is None:
         wave_size = 4 * max_batch
@@ -953,17 +1115,7 @@ def analyze_library(
                               device=runner.device) if album else None)
     inflight: deque = deque()  # (future, idxs, sr, nch, ups, est)
 
-    def _unpack(path):
-        if device_entropy:
-            with open(path, "rb") as f:
-                u = fe.unpack_data_light_packed(f.read())
-        else:
-            u = fe.unpack_file(path)
-        if u.n == 0:
-            raise RuntimeError("No valid MP3 frames found")
-        return u
-
-    prepare = runner.prepare_light if device_entropy else runner.prepare_heavy
+    _unpack, prepare = codec.unpack, codec.prepare
 
     def _dispatch(ups, sr, nch):
         return runner.launch(prepare(ups, sr, nch), album=album_hist)
@@ -1011,7 +1163,7 @@ def analyze_library(
                 path=str(paths[i]), ok=True,
                 result=ReplayGainResult(
                     loudness_db=loud, gain_db=PINK_REF - loud,
-                    peak=float(peaks[j]), sample_rate=sr, file_type="mp3"),
+                    peak=float(peaks[j]), sample_rate=sr, file_type=codec.file_type),
                 histogram=hist[j],
             )
             done.append(outcomes[i])
@@ -1039,7 +1191,7 @@ def analyze_library(
         sr, nch = key
         idxs = [i for i, _ in members]
         ups = [u for _, u in members]
-        est = _est_resident_bytes(ups)
+        est = codec.est_bytes(ups)
         while inflight and (
             len(inflight) >= MAX_INFLIGHT
             or (len(inflight) >= 2
@@ -1056,7 +1208,7 @@ def analyze_library(
             return
         members.sort(key=lambda iu: iu[1].n)
         while members and (final or len(members) >= max_batch):
-            c = _chunk_size(members, max_batch, rows_cap)
+            c = _chunk_size(members, max_batch, rows_cap, codec.padded_rows)
             flush_bucket(key, members[:c])
             del members[:c]
 
@@ -1075,11 +1227,12 @@ def analyze_library(
                 unpacked = [_result_of(_unpack, p) for p in wave]
             for i, path, (u, err) in zip(widx, wave, unpacked):
                 if err is not None:
-                    outcomes[i] = TrackOutcome(path=str(path), ok=False, error=err)
+                    outcomes[i] = TrackOutcome(path=str(path), ok=False,
+                                               error=str(err), exception=err)
                     continue
-                sr, nch = u.sample_rate, u.n_channels
+                sr, nch = u.sample_rate, u.n_channels or 1
                 buckets.setdefault((sr, nch), []).append((i, u))
-                audio_seconds += (u.n // nch) * 576 / sr
+                audio_seconds += codec.seconds(u)
             for key, members in buckets.items():
                 flush_ready(key, members)
         for key, members in buckets.items():

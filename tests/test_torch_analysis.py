@@ -5,10 +5,11 @@ analyze_track_internal / analyze_album / find_peak_amplitude of the port
 gain within 0.02 dB and peak within rtol 2e-4. The port package must
 never import jax: a subprocess imports every port module (K3's
 decode/class_core.py, its probe tools/hk_dotprobe.py and the decode
-back-end decode/synthesis.py among them), runs a CPU slice on both
-routes and finds no jax in sys.modules.
+back-end decode/synthesis.py among them), runs a CPU slice on both MP3
+routes and both AAC routes and finds no jax in sys.modules.
 """
 
+import dataclasses
 import os
 import pathlib
 import subprocess
@@ -90,15 +91,26 @@ def test_album_matches_jax(clips):
 
 
 def test_track_index_and_aac_are_refused(clips, tmp_path):
+    """An MP3 has one track, so an index past it is refused. Two minimal
+    ADTS headers are routed as AAC and analysed as the JAX package
+    analyses them: two silent frames, an empty histogram, peak 0."""
     with pytest.raises(analysis.AnalysisError):
         analysis.analyze_track_internal(clips[0], 2, device="cpu")
-    # Two minimal ADTS headers: routed as AAC, which is not ported yet.
     adts = tmp_path / "x.aac"
     adts.write_bytes(bytes([0xFF, 0xF1, 0x50, 0x80, 0x00, 0xE0, 0xFC]) * 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        analysis.analyze_track_internal(adts, device="cpu")
-    with pytest.raises(NotImplementedError):
-        analysis.find_peak_amplitude(adts, device="cpu")
+    mine = analysis.analyze_track_internal(adts, device="cpu")
+    ref = jan.analyze_track_internal(adts)
+    assert dataclasses.astuple(mine.result) == dataclasses.astuple(ref.result)
+    assert mine.result.file_type == "aac"
+    assert mine.result.peak == 0.0 and not mine.histogram.any()
+    assert mine.audio_seconds == ref.audio_seconds
+    assert (dataclasses.astuple(analysis.find_peak_amplitude(adts, device="cpu"))
+            == dataclasses.astuple(jan.find_peak_amplitude(adts)))
+    with pytest.raises(Exception, match="Track index 1 out of range") as err:
+        analysis.analyze_track_internal(adts, 1, device="cpu")
+    with pytest.raises(Exception) as j_err:
+        jan.analyze_track_internal(adts, 1)
+    assert str(err.value) == str(j_err.value)
 
 
 def test_cuda_request_without_cuda_raises(clips, monkeypatch):
@@ -165,7 +177,8 @@ import mp3rgain_tpu_torch
 for info in pkgutil.walk_packages(mp3rgain_tpu_torch.__path__, "mp3rgain_tpu_torch."):
     importlib.import_module(info.name)
 for name in ("decode.class_core", "decode.synthesis", "tools.hk_dotprobe",
-             "parallel.runner"):
+             "parallel.runner", "aac", "decode.aac_frontend", "decode.aac_prep",
+             "decode.aac_synthesis"):
     assert "mp3rgain_tpu_torch." + name in sys.modules, name
 
 from mp3rgain_tpu.decode import frontend as fe
@@ -184,6 +197,14 @@ assert class_core.COUNT.plain >= 1
 pcm = synthesis.decode_batch(synthesis.batch_from_unpacked(full, "cpu"),
                              synthesis.DecodeTables(int(full.info[0, fe.SR_ROW])))
 assert pcm.shape == (1, full.n_channels, full.n // full.n_channels * 576)
+
+import os
+from mp3rgain_tpu_torch import aac
+from mp3rgain_tpu_torch.testing import make_smoke_data as smoke
+clip = os.path.join(smoke.DATA_DIR, smoke.AAC_ADTS_TRACK)
+for device_prep in (True, False):
+    r = aac.analyze_track_internal(clip, device="cpu", device_prep=device_prep)
+    assert r.result.file_type == "aac" and r.histogram.sum() > 0
 print("JAX_LOADED", any(m == "jax" or m.startswith("jax.") for m in sys.modules))
 """
 

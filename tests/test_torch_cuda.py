@@ -1,5 +1,5 @@
 """Torch port on a CUDA card: each hand-written kernel against its plain
-version, and both routes on the card against the CPU.
+version, both MP3 routes and both AAC routes on the card against the CPU.
 
 Every test carries the `cuda` marker and skips where
 torch.cuda.is_available() is false. The file needs neither jax nor an MP3
@@ -16,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from mp3rgain_tpu_torch import _build
+from mp3rgain_tpu_torch import _build, aac, scan
+from mp3rgain_tpu_torch.decode import aac_frontend as af
+from mp3rgain_tpu_torch.decode import aac_prep, aac_synthesis
 from mp3rgain_tpu_torch.decode import class_core as cc
 from mp3rgain_tpu_torch.decode import entropy_kernel as ek
 from mp3rgain_tpu_torch.decode import frontend as fe
@@ -326,3 +328,102 @@ def test_decode_file_on_card_matches_cpu(name, dev):
     assert sr == sr_cpu and got.shape == want.shape
     bound = 5e-4 * np.sqrt((want ** 2).mean()) + 1e-5
     assert np.abs(got - want).max() < bound
+
+
+# --- the AAC/M4A path (torch ops; no kernel of this port lies on it) -------------
+
+AAC_CLIPS = [smoke.AAC_TRANSIENT_TRACK, smoke.AAC_PNS_TRACK, smoke.AAC_ADTS_TRACK,
+             smoke.AAC_TWO_TRACKS]
+
+
+def test_aac_bit_exact_pieces_on_card(dev):
+    """The noise hash (int32 wraparound, arithmetic shifts), the nibble
+    unpack over all 256 bytes and the escape scatter with int32 and int64
+    indices give the CPU's bits."""
+    cpu, card = aac_prep.AacPrep(22050), aac_prep.AacPrep(22050).to(dev)
+    for rows in (1, 300, 5000):
+        assert torch.equal(card.noise_uniform(rows).cpu(), cpu.noise_uniform(rows))
+    b = torch.arange(-128, 128, dtype=torch.int8)
+    for got, want in zip(aac_prep.unpack_nibbles(b.to(dev)), aac_prep.unpack_nibbles(b)):
+        assert torch.equal(got.cpu(), want)
+    rng = np.random.default_rng(3)
+    spec_q4 = torch.from_numpy(rng.integers(-128, 128, (2, 40, 64), dtype=np.int8))
+    idx = rng.choice(2 * 40 * 1024, 500, replace=False)
+    val = torch.from_numpy(rng.integers(-8000, 8000, 500).astype(np.int16))
+    for dt in (np.int32, np.int64):
+        esc = torch.from_numpy(idx.astype(dt))
+        want = aac_prep.unpack_quantized(spec_q4, esc, val)
+        got = aac_prep.unpack_quantized(spec_q4.to(dev), esc.to(dev), val.to(dev))
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", AAC_CLIPS)
+def test_aac_prep_and_synthesis_on_card_match_cpu(name, dev):
+    """prep_spectra within rel 1e-5 of the row maximum and the decoded PCM
+    within abs 1e-5 of the CPU's, on the same uploaded arrays."""
+    uq = af.unpack_file_q(os.path.join(smoke.DATA_DIR, name))
+    nch = uq.n_channels
+    p = pr.Runner("cpu").prepare_aac_q([uq], uq.sample_rate, nch)
+    out = {}
+    for d in ("cpu", dev):
+        tail = aac.AacTail(uq.sample_rate, nch).to(d)
+        args = _on(torch.device(d), p.arrays)
+        spec = tail.prep.prep_spectra(*args[:7], n_channels=nch)
+        pcm = tail.synthesis.decode(spec, args[7], args[8], args[10],
+                                    p.shapes["short_counts"], n_channels=nch)
+        out[str(d)] = (spec.cpu().numpy()[0], pcm.cpu().numpy()[0])
+    (s_c, p_c), (s_g, p_g) = out["cpu"], out[str(dev)]
+    scale = np.abs(s_c).max(axis=1, keepdims=True)
+    assert (np.abs(s_g - s_c) <= 1e-5 * scale + 1e-30).all()
+    assert np.abs(p_g - p_c).max() < 1e-5
+
+
+@pytest.mark.parametrize("device_prep", [True, False])
+def test_aac_routes_on_card_match_cpu(device_prep, dev):
+    """A batch of tracks of different lengths on each route: window
+    counts equal, index within 2 bins, peak rtol 2e-4 of the CPU's."""
+    paths = [os.path.join(smoke.DATA_DIR, n)
+             for n in (smoke.AAC_PNS_TRACK, smoke.AAC_TRANSIENT_TRACK, smoke.AAC_TWO_TRACKS)]
+    ups = [aac.unpack_for(p, None, device_prep) for p in paths]
+    batch = aac.analyze_batch_q if device_prep else aac.analyze_batch
+    g_hist, g_louds, g_peaks = batch(ups, 44100, 2, runner=pr.Runner(dev))
+    c_hist, c_louds, c_peaks = batch(ups, 44100, 2, runner=pr.Runner("cpu"))
+    assert np.array_equal(g_hist.sum(axis=1), c_hist.sum(axis=1))
+    assert np.abs(np.round(g_louds * 100) - np.round(c_louds * 100)).max() <= 2
+    np.testing.assert_allclose(g_peaks, c_peaks, rtol=2e-4)
+
+
+def test_aac_scan_on_card_matches_single_tracks(dev, tmp_path):
+    """scan_files over AAC and MP3 files on the card (device prep by
+    default), two batches per bucket, against each file alone; the resume
+    covers the AAC records."""
+    from mp3rgain_tpu_torch import analysis
+
+    names = AAC_CLIPS + [smoke.TRANSIENT_TRACK, smoke.AAC_PNS_TRACK]
+    paths = []
+    for i, name in enumerate(names):
+        paths.append(str(tmp_path / f"{i}_{name}"))
+        os.symlink(os.path.join(smoke.DATA_DIR, name), paths[-1])
+    runner = pr.Runner(dev)
+    manifest = tmp_path / "scan.json"
+    res = scan.scan_files(paths, manifest_path=manifest, runner=runner)
+    assert {t["route"] for t in runner.timings} == {"light", "aac_q"}
+    for p in paths:
+        alone = analysis.analyze_track_internal(p, runner=runner)
+        got = res.results[p]
+        assert got.file_type == alone.result.file_type
+        assert int(res.histograms[p].sum()) == int(alone.histogram.sum())
+        assert abs(round(got.loudness_db * 100) - round(alone.result.loudness_db * 100)) <= 1
+        np.testing.assert_allclose(got.peak, alone.result.peak, rtol=1e-5)
+    n = len(runner.timings)
+    again = scan.scan_files(paths, manifest_path=manifest, runner=runner)
+    assert again.resumed == len(paths) and len(runner.timings) == n
+
+
+def test_aac_decode_file_on_card_matches_cpu(dev):
+    path = os.path.join(smoke.DATA_DIR, smoke.AAC_TRANSIENT_TRACK)
+    got, sr = aac.decode_file(path, device=dev)
+    want, sr_c = aac.decode_file(path, device="cpu")
+    assert sr == sr_c == 44100 and got.shape == want.shape
+    assert np.abs(got - want).max() < 1e-5
+    assert aac_synthesis.EIGHT_SHORT in af.unpack_file(path).info[:, af.WINDOW_SEQ]

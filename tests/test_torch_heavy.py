@@ -243,7 +243,7 @@ def test_analysis_core_matches_jax(batches, name):
     assert np.array_equal(np.array([round(v * 100) + 2000 for v in louds]),
                           loud_idx[: len(ups)].numpy())
     assert np.array_equal(peaks, peak[: len(ups)].numpy())
-    assert set(runner.last_timings) == {"prep_s", "h2d_s", "device_ms"}
+    assert set(runner.last_timings) == {"route", "prep_s", "h2d_s", "device_ms"}
 
 
 @pytest.mark.parametrize("name", sorted(BATCHES))

@@ -2,7 +2,9 @@
 
 The port imports nothing of mp3rgain_tpu, so it carries copies of the host
 code it needs: the native C++ front-end and byte-surgery core (_native/,
-built by native.py), the MP3 front-end (decode/frontend.py), the table
+built by native.py), the MP3 front-end (decode/frontend.py), the AAC front-end
+(_native/aacdec.cpp, decode/aac_frontend.py, its tables and crafted
+streams, the libavcodec encoder of the committed clips), the table
 builders and filter coefficients, the buffer pool, the result types, the
 crafted streams, the libmp3lame encoder and the CLI's host modules (ape,
 id3v2, bitstream, mp4meta, utils). Every copy is held here to its
@@ -11,11 +13,12 @@ and by their outputs, the C++ copies by their code lines and by the
 outputs of the functions over them, on the committed clips and the
 crafted streams.
 
-Three copies must differ, and are held by the rest of their code and by
+Four copies must differ, and are held by the rest of their code and by
 their outputs: bitstream.find_max_amplitude (the decoded peak runs on a
 device the caller names, and a missing card raises instead of falling
 back to an estimate), mp4meta (its ctypes declarations live in
-native._declare, so importing it loads no library) and native.py (the
+native._declare, so importing it loads no library), decode/aac_frontend.py
+(the same, for the three AAC unpackers it binds) and native.py (the
 library is built and declared on first use; its wrappers of the
 byte-surgery entry points are the original's functions, held by code).
 """
@@ -39,18 +42,22 @@ from mp3rgain_tpu import native as jnative  # noqa: E402
 from mp3rgain_tpu import replaygain as jrg  # noqa: E402
 from mp3rgain_tpu.decode import entropy_tables as jet  # noqa: E402
 from mp3rgain_tpu.decode import format_tables as jft  # noqa: E402
+from mp3rgain_tpu.decode import aac_frontend as jaf  # noqa: E402
 from mp3rgain_tpu.decode import frontend as jfe  # noqa: E402
 from mp3rgain_tpu.decode import synth_window as jsw  # noqa: E402
 from mp3rgain_tpu.decode import tables as jtables  # noqa: E402
 from mp3rgain_tpu.ops import coeffs as jcoeffs  # noqa: E402
+from mp3rgain_tpu.testing import avcodec  # noqa: E402
 from mp3rgain_tpu.testing import craft as jcraft  # noqa: E402
+from mp3rgain_tpu.testing import craft_aac as jcraft_aac  # noqa: E402
 from mp3rgain_tpu.testing import fixtures  # noqa: E402
 from mp3rgain_tpu_torch import ape, mp4meta, native, replaygain  # noqa: E402
 from mp3rgain_tpu_torch import bitstream as tbitstream  # noqa: E402
+from mp3rgain_tpu_torch.decode import aac_frontend  # noqa: E402
 from mp3rgain_tpu_torch.decode import entropy_tables, format_tables, frontend  # noqa: E402
 from mp3rgain_tpu_torch.decode import synth_window, tables  # noqa: E402
 from mp3rgain_tpu_torch.ops import coeffs  # noqa: E402
-from mp3rgain_tpu_torch.testing import craft  # noqa: E402
+from mp3rgain_tpu_torch.testing import craft, craft_aac  # noqa: E402
 from mp3rgain_tpu_torch.testing import make_smoke_data as smoke  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -88,11 +95,13 @@ def _same(a, b, what="value"):
 PY_COPIES = [
     "decode/tables.py",
     "decode/format_tables.py",
+    "decode/aac_format_tables.py",
     "decode/entropy_tables.py",
     "decode/synth_window.py",
     "ops/coeffs.py",
     "utils/bufpool.py",
     "testing/craft.py",
+    "testing/craft_aac.py",
     "ape.py",
     "id3v2.py",
     "utils/__init__.py",
@@ -140,6 +149,7 @@ def _declares_on_lib(node) -> bool:
 @pytest.mark.parametrize("rel,differs", [
     ("bitstream.py", {"find_max_amplitude"}),
     ("mp4meta.py", set()),
+    ("decode/aac_frontend.py", set()),
 ])
 def test_python_copy_differs_only_where_it_must(rel, differs):
     """bitstream.py: every function but find_max_amplitude is the
@@ -180,19 +190,26 @@ def _code_lines(path: str) -> list[str]:
     return out
 
 
-NATIVE_SOURCES = ["bitstream.cpp", "ape.cpp", "mp3dec.cpp", "mp4box.cpp"]
+NATIVE_SOURCES = ["bitstream.cpp", "ape.cpp", "mp3dec.cpp", "mp4box.cpp", "aacdec.cpp"]
 
 
-@pytest.mark.parametrize("name", NATIVE_SOURCES + ["huffman_tables.h"])
+@pytest.mark.parametrize("name", NATIVE_SOURCES + ["huffman_tables.h", "aac_tables.h"])
 def test_native_copy_has_the_original_code(name):
     mine = _code_lines(os.path.join(PORT_PKG, "_native", name))
     theirs = _code_lines(os.path.join(JAX_PKG, "_native", name))
     assert mine == theirs
 
 
+def test_aac_tables_copy_is_byte_equal():
+    with open(os.path.join(PORT_PKG, "_native", "aac_tables.h"), "rb") as f:
+        mine = f.read()
+    with open(os.path.join(JAX_PKG, "_native", "aac_tables.h"), "rb") as f:
+        assert mine == f.read()
+
+
 def test_native_header_declares_the_sources_entry_points():
     """The port's native.h declares exactly the C entry points that the
-    originals of its four sources define, with their signatures, and every
+    originals of its five sources define, with their signatures, and every
     one the port binds."""
     sig = r"\w+\s*\**\s*mg_\w+\s*\([^)]*\)"
 
@@ -208,7 +225,8 @@ def test_native_header_declares_the_sources_entry_points():
     assert native.SOURCES == NATIVE_SOURCES
     bound = {"mg_mp3_unpack", "mg_mp3_unpack_light", "mg_mp3_unpack_light2",
              "mg_mp3_count_gch", "mg_entropy_pack4", "mg_sort_est_bits",
-             "mg_pack_light_track", "mg_mp4_is_mp4"} | set(SURGERY_ENTRY_POINTS)
+             "mg_pack_light_track", "mg_mp4_is_mp4"} | set(SURGERY_ENTRY_POINTS) | set(
+                 AAC_ENTRY_POINTS)
     assert all(any(f" {n}(" in d for d in mine) for n in bound)
 
 
@@ -234,9 +252,13 @@ SURGERY_ENTRY_POINTS = [
 ]
 
 
+AAC_ENTRY_POINTS = ["mg_aac_unpack_adts", "mg_aac_unpack_adts_f16",
+                    "mg_aac_unpack_adts_q"]
+
+
 @pytest.mark.parametrize("name", ["mg_mp3_unpack", "mg_mp3_unpack_light",
                                   "mg_mp3_count_gch", "mg_mp3_unpack_light2"]
-                         + SURGERY_ENTRY_POINTS)
+                         + SURGERY_ENTRY_POINTS + AAC_ENTRY_POINTS)
 def test_native_signatures_equal_the_front_end_originals(name):
     mine = _Lib()
     native._declare(mine)
@@ -342,6 +364,63 @@ def test_front_end_helpers_and_constants_equal_the_original():
     _same(frontend.pack_scf_rows(u.scf), jfe.pack_scf_rows(u.scf), "scf")
 
 
+# --- the AAC front-end's outputs, array for array -----------------------------------
+
+def _mp4_adts(name: str) -> bytes:
+    data = _clip(name)
+    return jaf.mp4_to_adts(data) if data[4:8] == b"ftyp" else data
+
+
+AAC_STREAMS = {
+    "transient": lambda: _mp4_adts(smoke.AAC_TRANSIENT_TRACK),
+    "pns": lambda: _mp4_adts(smoke.AAC_PNS_TRACK),
+    "mono_22k": lambda: _mp4_adts(smoke.AAC_ADTS_TRACK),
+    "truncated": lambda: _mp4_adts(smoke.AAC_PNS_TRACK)[:20000],
+    "craft_sce_pulses": lambda: jcraft_aac.craft_sce_stream(
+        8, global_gain=140, band_quads=[(1, 0, -1, 0), (0, 1, 0, 0)],
+        pulses=[(0, 2), (3, 7)], pulse_start_sfb=1),
+    "craft_sce_tns": lambda: jcraft_aac.craft_sce_stream(
+        6, n_bands=40, global_gain=140, energy={b: (1, -1, 1, 0) for b in range(30)},
+        tns=dict(length=40, order=3, coefs=[5, 2, 7])),
+    "craft_cpe_is_ms": lambda: jcraft_aac.craft_cpe_stream(
+        8, global_gain=140, n_bands=20, left_energy={b: (1, -1, 1, 0) for b in range(12)},
+        is_bands={12: (15, 4), 13: (14, 3)}, ms_used={12, 13, 2, 4}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(AAC_STREAMS))
+def test_aac_front_end_outputs_equal_the_original(name):
+    data = AAC_STREAMS[name]()
+    for fn, kw in (("unpack_adts", {}), ("unpack_adts", {"f16": True}),
+                   ("unpack_adts_q", {})):
+        mine = getattr(aac_frontend, fn)(data, **kw)
+        theirs = getattr(jaf, fn)(data, **kw)
+        assert mine.n > 0, (name, fn)
+        _same(mine, theirs, f"{name}.{fn}")
+
+
+def test_aac_demux_and_constants_equal_the_original(tmp_path):
+    names = [k for k, v in vars(jaf).items()
+             if k.isupper() and isinstance(v, (int, dict))]
+    assert len(names) >= 16
+    for k in names:
+        _same(getattr(aac_frontend, k), getattr(jaf, k), k)
+    two = _clip(smoke.AAC_TWO_TRACKS)
+    for track in (None, 0, 1):
+        adts = aac_frontend.mp4_to_adts(two, track_index=track)
+        assert adts == jaf.mp4_to_adts(two, track_index=track) and len(adts) > 1000
+    for mod in (aac_frontend, jaf):
+        with pytest.raises(mod.Mp4DemuxError, match="Track index 2 out of range"):
+            mod.mp4_to_adts(two, track_index=2)
+        with pytest.raises(mod.Mp4DemuxError, match="No moov box"):
+            mod.mp4_to_adts(two[:24])
+    path = os.path.join(smoke.DATA_DIR, smoke.AAC_TWO_TRACKS)
+    _same(aac_frontend.unpack_file_q(path, track_index=1),
+          jaf.unpack_file_q(path, track_index=1), "unpack_file_q")
+    _same(aac_frontend.unpack_file(path, f16=True), jaf.unpack_file(path, f16=True),
+          "unpack_file")
+
+
 # --- the builders' outputs ------------------------------------------------------
 
 def test_table_builders_bit_identical():
@@ -405,6 +484,51 @@ CRAFTED = [
 def test_crafted_streams_byte_identical(fn, kw):
     mine = getattr(craft, fn)(**kw)
     assert mine == getattr(jcraft, fn)(**kw) and len(mine) > 0
+
+
+AAC_CRAFTED = [
+    ("craft_sce_stream", {"n_frames": 4, "global_gain": 140,
+                          "band_quads": [(1, 0, -1, 0), (1, 1, 1, 1)]}),
+    ("craft_sce_stream", {"n_frames": 3, "global_gain": 120, "band_quads": [(0, 1, 0, 0)],
+                          "pulses": [(0, 3)]}),
+    ("craft_cpe_stream", {"n_frames": 4, "global_gain": 140, "n_bands": 20,
+                          "left_energy": {b: (1, -1, 1, 0) for b in range(12)},
+                          "ms_used": {1, 3, 5}}),
+]
+
+
+@pytest.mark.parametrize("fn,kw", AAC_CRAFTED)
+def test_crafted_aac_streams_byte_identical(fn, kw):
+    """The copy parses the port's own aac_tables.h."""
+    assert os.path.samefile(craft_aac._TABLES_H,
+                            os.path.join(PORT_PKG, "_native", "aac_tables.h"))
+    mine = getattr(craft_aac, fn)(**kw)
+    assert mine == getattr(jcraft_aac, fn)(**kw) and len(mine) > 0
+
+
+@pytest.mark.parametrize("channels,sr,bitrate", [(2, 44100, 128000), (1, 22050, 48000),
+                                                 (2, 48000, 192000)])
+def test_aac_encoder_copy_byte_identical(channels, sr, bitrate):
+    pcm = _pcm(channels, sr, sr + channels).astype(np.float32) / 32768.0
+    mine = smoke.encode_adts(pcm, sr, bitrate=bitrate)
+    assert mine == avcodec.encode_adts(pcm, sr, bitrate=bitrate) and len(mine) > 1000
+    if channels == 2:
+        other = _pcm(1, 32000, 5).astype(np.float32) / 32768.0
+        assert (smoke.encode_m4a_multi([(pcm, sr), (other, 32000)], bitrate=bitrate)
+                == fixtures.encode_m4a_multi([(pcm, sr), (other, 32000)], bitrate=bitrate))
+        assert smoke.encode_m4a(pcm, sr, bitrate) == fixtures.encode_m4a(pcm, sr, bitrate)
+
+
+def test_committed_aac_clips_are_what_the_generator_encodes():
+    """The short clips, encoded again (the 60 s one is left out for time)."""
+    want = dict(
+        [(smoke.AAC_TRANSIENT_TRACK,
+          smoke.encode_m4a(smoke._float(smoke.transient_pcm()), 44100, bitrate=128000)),
+         (smoke.AAC_PNS_TRACK, smoke.encode_m4a(smoke.pns_pcm(), 44100, bitrate=96000)),
+         (smoke.AAC_ADTS_TRACK,
+          smoke.encode_adts(smoke._float(smoke.mono_pcm()), 22050, bitrate=48000))])
+    for name, data in want.items():
+        assert _clip(name) == data, name
 
 
 def test_crc_protection_byte_identical():

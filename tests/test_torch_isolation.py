@@ -47,10 +47,13 @@ def _imported(path: str) -> list[str]:
 
 def test_scan_covers_the_port():
     files = _port_files()
-    assert "chip_smoke.py" in files and len(files) > 25
+    assert "chip_smoke.py" in files and len(files) > 31
     for must in ("analysis.py", "native.py", "decode/frontend.py",
                  "decode/class_core.py", "parallel/runner.py", "scan.py", "cli.py",
-                 "bitstream.py", "ape.py", "id3v2.py", "mp4meta.py"):
+                 "bitstream.py", "ape.py", "id3v2.py", "mp4meta.py", "aac.py",
+                 "decode/aac_frontend.py", "decode/aac_prep.py",
+                 "decode/aac_synthesis.py", "decode/aac_format_tables.py",
+                 "testing/craft_aac.py", "testing/make_smoke_data.py"):
         assert os.path.join(PORT, must) in files, must
 
 
@@ -99,6 +102,9 @@ print(json.dumps({{
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     assert f"{PORT}.decode.frontend" in got["modules"]
     assert f"{PORT}.tools.hk_dotprobe" in got["modules"]
-    assert len(got["modules"]) >= 25
+    for name in ("aac", "decode.aac_frontend", "decode.aac_prep", "decode.aac_synthesis",
+                 "testing.craft_aac"):
+        assert f"{PORT}.{name}" in got["modules"], name
+    assert len(got["modules"]) >= 31
     assert got["loaded"] == []
     assert not got["host_library_loaded"] and not got["kernel_library_loaded"]

@@ -116,7 +116,7 @@ def test_waves_and_small_batches_equal_one_pass(library, port_album):
     assert waved.album_peak == port_album.album_peak
     # Six tracks in three buckets, at most two to a batch.
     assert len(runner.timings) >= 4
-    assert all(set(t) == {"prep_s", "h2d_s", "device_ms"} for t in runner.timings)
+    assert all(set(t) == {"route", "prep_s", "h2d_s", "device_ms"} for t in runner.timings)
 
 
 def test_rows_cap_cuts_batches_and_changes_no_result(library, port_album):

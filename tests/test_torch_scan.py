@@ -6,8 +6,11 @@ index within 2 bins, peak within rtol 2e-4); a second run resuming every
 track from the manifest with identical results; a scan killed after its
 first collected batch resuming that batch; manifests written by either
 package resumed in full by the other; album_union against the JAX
-package's; and an AAC file in the list failing alone with a
-NotImplementedError while the MP3s are analysed.
+package's; a degenerate AAC file and a corrupt MP3 in the list each
+treated as the JAX package treats them while the MP3s are analysed; and a
+mixed MP3 + AAC library (an M4A, a raw ADTS stream, a crafted stream)
+against the JAX package's scan, resumed from a manifest written by
+either package, AAC records included.
 """
 
 import dataclasses
@@ -21,6 +24,7 @@ import torch
 pytest.importorskip("jax")
 
 from mp3rgain_tpu import scan as jscan  # noqa: E402
+from mp3rgain_tpu.testing import avcodec, craft_aac, fixtures  # noqa: E402
 from mp3rgain_tpu_torch import scan  # noqa: E402
 from mp3rgain_tpu_torch.parallel import runner as pr  # noqa: E402
 
@@ -181,19 +185,130 @@ def test_album_union_refuses_a_multi_host_group(port_scan, library, monkeypatch)
 
 
 def test_an_aac_file_fails_alone(library, port_scan, tmp_path):
+    """Zero-payload ADTS frames go down the AAC path and come back as the
+    JAX package returns them (three silent frames: an empty histogram,
+    peak 0); an M4A without a moov box and a corrupt MP3 each fail alone
+    with the JAX package's error; the MP3s are analysed as without
+    them."""
     adts = tmp_path / "stream.aac"
     adts.write_bytes(_adts_stream())
+    broken = tmp_path / "broken.m4a"
+    broken.write_bytes(b"\x00\x00\x00\x18ftypM4A " + bytes(64))
     corrupt = tmp_path / "corrupt.mp3"
     corrupt.write_bytes(b"corrupt" * 64)
-    paths = [library[0], str(adts), *library[1:], str(corrupt)]
+    paths = [library[0], str(adts), *library[1:], str(broken), str(corrupt)]
     seen = []
     res = scan.scan_files(paths, progress_cb=seen.append, device="cpu")
-    err = res.results[str(adts)]
-    assert isinstance(err, NotImplementedError) and "item 10" in str(err)
-    assert isinstance(res.results[str(corrupt)], RuntimeError)
+    ref = jscan.scan_files([str(adts), str(broken), str(corrupt)])
+    assert (dataclasses.astuple(res.results[str(adts)])
+            == dataclasses.astuple(ref.results[str(adts)]))
+    assert res.results[str(adts)].file_type == "aac"
+    assert not res.histograms[str(adts)].any()
+    for bad in (str(broken), str(corrupt)):
+        mine, theirs = res.results[bad], ref.results[bad]
+        assert isinstance(mine, RuntimeError) and isinstance(theirs, RuntimeError)
+        assert type(mine).__name__ == type(theirs).__name__ and str(mine) == str(theirs)
+        assert bad not in res.histograms
     assert sorted(seen) == sorted(paths)
     _assert_identical(res, port_scan, library)
-    assert str(adts) not in res.histograms
+
+
+@pytest.fixture(scope="module")
+def mixed_library(library, tmp_path_factory):
+    """The MP3s plus four AAC files in three (rate, channels) buckets."""
+    out = tmp_path_factory.mktemp("torch_scan_aac")
+    rng = np.random.default_rng(31)
+
+    def pcm(seconds, sr, channels, freq):
+        t = np.arange(int(sr * seconds)) / sr
+        wave = (0.3 * np.sin(2 * np.pi * freq * t)
+                + 0.04 * rng.standard_normal(len(t))).astype(np.float32)
+        return wave if channels == 1 else np.stack([wave, np.roll(wave, 11)], axis=1)
+
+    files = {
+        "a.m4a": fixtures.encode_m4a(pcm(1.5, 44100, 2, 523.0), 44100, bitrate=96000),
+        "b.m4a": fixtures.encode_m4a(pcm(0.8, 44100, 2, 330.0), 44100, bitrate=128000),
+        "c.aac": avcodec.encode_adts(pcm(1.0, 22050, 1, 700.0), 22050, bitrate=48000),
+        "d.aac": craft_aac.craft_sce_stream(
+            30, global_gain=140,
+            band_quads=[(1, 0, -1, 0), (0, 1, 0, 0), (-1, -1, 1, 0), (1, 1, 1, 1)]),
+    }
+    paths = []
+    for name, data in files.items():
+        (out / name).write_bytes(data)
+        paths.append(str(out / name))
+    return [library[0], paths[0], *library[1:3], *paths[1:], *library[3:]]
+
+
+@pytest.mark.parametrize("device_prep", [None, True])
+def test_mixed_mp3_and_aac_scan_matches_jax(mixed_library, device_prep):
+    seen = []
+    mine = scan.scan_files(mixed_library, progress_cb=seen.append, device="cpu",
+                           device_prep=device_prep)
+    ref = jscan.scan_files(mixed_library)
+    assert sorted(seen) == sorted(mixed_library)
+    assert [mine.results[p].file_type for p in mixed_library] == \
+        [ref.results[p].file_type for p in mixed_library]
+    assert sum(r.file_type == "aac" for r in mine.results.values()) == 4
+    for p in mixed_library:
+        a, b = mine.results[p], ref.results[p]
+        assert int(mine.histograms[p].sum()) == int(np.asarray(ref.histograms[p]).sum())
+        assert abs(_idx(a.loudness_db) - _idx(b.loudness_db)) <= 2, p
+        # Across the AAC routes the JAX package's own tolerance is rel 1e-3.
+        rtol = 1e-3 if device_prep and a.file_type == "aac" else 2e-4
+        np.testing.assert_allclose(a.peak, b.peak, rtol=rtol)
+        assert a.sample_rate == b.sample_rate
+    assert mine.audio_seconds == pytest.approx(ref.audio_seconds, rel=1e-9)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_mixed_manifest_resumes_across_the_packages(mixed_library, tmp_path, writer):
+    """AAC records included: a manifest written by either package is
+    resumed in full by the other, and a scan killed after its first AAC
+    batch resumes the MP3s and that batch."""
+    manifest = tmp_path / "scan.json"
+    if writer == "jax":
+        first = jscan.scan_files(mixed_library, manifest_path=manifest)
+        runner = pr.Runner("cpu")
+        second = scan.scan_files(mixed_library, manifest_path=manifest, runner=runner)
+        assert runner.timings == []  # no batch ran
+    else:
+        first = scan.scan_files(mixed_library, manifest_path=manifest, device="cpu")
+        second = jscan.scan_files(mixed_library, manifest_path=manifest)
+    assert second.resumed == len(mixed_library)
+    for p in mixed_library:
+        assert (dataclasses.astuple(second.results[p])
+                == dataclasses.astuple(first.results[p])), p
+        assert np.array_equal(second.histograms[p], np.asarray(first.histograms[p]))
+    assert scan.Manifest(manifest).data == jscan.Manifest(manifest).data
+
+
+def test_killed_aac_scan_resumes_every_collected_batch(mixed_library, tmp_path,
+                                                       monkeypatch):
+    manifest = tmp_path / "scan.json"
+    real = pr.analyze_library
+
+    def killed_after_first_aac_batch(paths, runner=None, batch_cb=None, **kw):
+        if kw.get("file_type") != "aac":
+            return real(paths, runner=runner, batch_cb=batch_cb, **kw)
+
+        def cb(done):
+            batch_cb(done)
+            raise KeyboardInterrupt
+
+        return real(paths, runner=runner, batch_cb=cb, **kw)
+
+    monkeypatch.setattr(pr, "analyze_library", killed_after_first_aac_batch)
+    with pytest.raises(KeyboardInterrupt):
+        scan.scan_files(mixed_library, manifest_path=manifest, device="cpu")
+    saved = scan.Manifest(manifest).data
+    n_mp3 = len(mixed_library) - 4
+    aac_saved = [p for p, r in saved.items() if r["file_type"] == "aac"]
+    assert len(saved) - len(aac_saved) == n_mp3 and 1 <= len(aac_saved) < 4
+    monkeypatch.setattr(pr, "analyze_library", real)
+    resumed = scan.scan_files(mixed_library, manifest_path=manifest, device="cpu")
+    assert resumed.resumed == len(saved)
+    assert all(not isinstance(r, Exception) for r in resumed.results.values())
 
 
 def test_scan_without_a_card_raises():

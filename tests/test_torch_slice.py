@@ -175,9 +175,9 @@ def test_runner_matches_jax(batches, name):
     for fused in (False, True):
         _assert_close_to_jax(hist, idx, peaks, jax_out[fused], bsz)
     t = runner.last_timings
-    assert set(t) == {"prep_s", "h2d_s", "device_ms"}
+    assert set(t) == {"route", "prep_s", "h2d_s", "device_ms"} and t["route"] == "light"
     assert runner.timings == [t]
-    assert all(v >= 0 for v in t.values())
+    assert all(t[k] >= 0 for k in ("prep_s", "h2d_s", "device_ms"))
     # The Runner reuses one LightTail per format.
     assert runner.tail(sr, nch) is runner.tail(sr, nch)
 
