@@ -34,8 +34,15 @@ transient M4A) on the pipelined Runner, every copy held to its
 single-track result, the K1/K2 launches counted per MP3 device batch, the
 resume from its manifest, and cli.main -a over 160 of the files; then
 cli.main -r and -x over 15 files, the per-track path, on the shared
-Runner and with a new Runner per file. Every check raises on failure;
-there is no CPU branch.
+Runner and with a new Runner per file; then the data-parallel layer on the
+one card: analyze_library over a 352-file library dealt across two Runners
+against one Runner (every track exactly equal, scans in turns), one batch
+split over the two Runners against the single dispatch, dryrun_multichip(2)
+and dryrun_multihost(2); the CLI's album path as two and three real
+processes under the MP3RGAIN_* environment (a gloo group over localhost)
+against one process, an empty slice, byte surgery on a slice; and
+gui.AppState(device="cuda") against the CLI. Every check raises on
+failure; there is no CPU branch.
 Output, one phase per line:
 
   device / nvidia-smi name and power limit / build seconds and K1/K2/K3
@@ -44,6 +51,7 @@ Output, one phase per line:
   split / heavy slice launch counts, CPU and light agreement, light
   unfused == heavy / decode_file / entry-point gains / AAC clips, slice,
   routes, stages and entry points / library scan / per-track CLI walls /
+  multi_runner / multihost / gui /
   times / a JSON line of per-kernel results (K1/K2 launches from the
   library scan) /
   last line {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -641,6 +649,362 @@ def per_track_cli_phase(dev, card, mp3_clip, aac_clip):
           + "; ".join(f"{k} {v:.3f} s" for k, v in fresh.items()), flush=True)
 
 
+MULTI_COPIES = {"bench": 192, "transient": 32, "mono": 32}
+MULTI_AAC_COPIES = {"aacbench": 64, "aactransient": 32}
+CHILD_TIMEOUT_S = 300
+
+
+def _symlinks(root, kind, src, n, ext):
+    out = [os.path.join(root, f"{kind}_{i:03d}{ext}") for i in range(n)]
+    for p in out:
+        os.symlink(src, p)
+    return out
+
+
+def multi_runner_phase(dev, card, bench_u, clips, aac_clips):
+    """Two Runners on the one card (they share its compute stream and
+    SMs): analyze_library over a 352-file MP3 + AAC library dealt across
+    them against one Runner, in turns (one, two, two, one), every track
+    exactly equal; the sharded light and AAC dispatches of a 64-track
+    batch against the single dispatch; dryrun_multichip(2), whose
+    host-decoded core launches K3."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mp3rgain_tpu_torch import aac
+    from mp3rgain_tpu_torch.decode import aac_frontend as af
+    from mp3rgain_tpu_torch.decode import class_core as cc
+    from mp3rgain_tpu_torch.decode import entropy_kernel as ek
+    from mp3rgain_tpu_torch.decode import hybrid_kernel as hk
+    from mp3rgain_tpu_torch.parallel import dryrun
+    from mp3rgain_tpu_torch.parallel import runner as pr
+
+    bench_path, mono_path, transient_path = clips
+    counters = (ek.COUNT, hk.COUNT, cc.COUNT)
+    one = [pr.Runner(dev)]
+    two = [pr.Runner(dev), pr.Runner(dev)]
+    for r in one + two:
+        for fmt in ((44100, 2), (22050, 1)):
+            r.tail(*fmt)
+        r.aac_tail(44100, 2)
+    torch.cuda.synchronize()
+
+    def scan(runners, mp3_paths, aac_paths):
+        for r in runners:
+            r.timings.clear()
+            r.busy_ms.clear()
+        for c in counters:
+            c.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mp3 = pr.analyze_library(mp3_paths, runners=runners, album=True)
+        a = pr.analyze_library(aac_paths, runners=runners, album=True, file_type="aac")
+        wall = time.perf_counter() - t0
+        # The Runners' clocks start at their own origin events: shift each
+        # onto the first Runner's before taking the union.
+        busy = []
+        for r in runners:
+            off = runners[0]._origin.elapsed_time(r._origin)
+            busy += [(x + off, y + off) for x, y in r.busy_ms]
+        routes = [[t["route"] for t in r.timings] for r in runners]
+        return {"mp3": mp3, "aac": a, "wall": wall, "busy": _union_ms(busy) / (wall * 1e3),
+                "routes": routes, "k1": ek.COUNT.kernel, "k2": hk.COUNT.kernel,
+                "plain": sum(c.plain for c in counters),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    root = tempfile.mkdtemp(prefix="mp3rgain-multi-")
+    try:
+        mp3_paths, aac_paths = [], []
+        for kind, src in (("bench", bench_path), ("transient", transient_path),
+                          ("mono", mono_path)):
+            mp3_paths += _symlinks(root, kind, src, MULTI_COPIES[kind], ".mp3")
+        for kind, src in zip(MULTI_AAC_COPIES, aac_clips):
+            aac_paths += _symlinks(root, kind, src, MULTI_AAC_COPIES[kind], ".m4a")
+        runs = [(len(rs), scan(rs, mp3_paths, aac_paths)) for rs in (one, two, two, one)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    ref = runs[0][1]
+    n_files = len(mp3_paths) + len(aac_paths)
+    check(all(t.ok for part in ("mp3", "aac") for t in ref[part].tracks),
+          "every track of the one-Runner scan is ok")
+    for n, run in runs:
+        batches = sum(len(r) for r in run["routes"])
+        light = sum(route == "light" for r in run["routes"] for route in r)
+        check(run["k1"] == light and run["k2"] == light and light > 0,
+              f"{n} Runner(s): K1 {run['k1']} and K2 {run['k2']} launches equal the "
+              f"{light} MP3 batches")
+        check(run["plain"] == 0, f"{n} Runner(s): plain calls {run['plain']}")
+        check(all(len(r) > 0 for r in run["routes"]) and batches > light,
+              f"every Runner took batches: {[len(r) for r in run['routes']]}")
+        for part in ("mp3", "aac"):
+            got, want = run[part], ref[part]
+            for a, b in zip(got.tracks, want.tracks):
+                check(a.ok and a.path == b.path and a.result == b.result
+                      and np.array_equal(a.histogram, b.histogram),
+                      f"{n} Runner(s): {a.path} equals the one-Runner scan exactly")
+            total = np.sum([t.histogram for t in got.tracks], axis=0, dtype=np.int64)
+            check(np.array_equal(got.album_histogram, total)
+                  and got.album_peak == max(t.result.peak for t in got.tracks),
+                  f"{n} Runner(s): the {part} album histogram equals the host sum")
+    audio_s = ref["mp3"].audio_seconds + ref["aac"].audio_seconds
+
+    # One batch split over the two Runners against the single dispatch.
+    group = pr.RunnerGroup(runners=two)
+    uq = af.unpack_file_q(aac_clips[0])
+    sharded = {}
+    for label, ups, single_fn, sharded_fn in (
+        ("light", [bench_u] * BATCH_TRACKS,
+         lambda ups: two[0].analyze_unpacked_light(ups, 44100, 2),
+         lambda ups: group.collect(group.dispatch_light_sharded(ups, 44100, 2))),
+        ("aac q", [uq] * BATCH_TRACKS,
+         lambda ups: aac.analyze_batch_q(ups, 44100, 2, runner=two[0]),
+         lambda ups: aac.analyze_batch_q_sharded(ups, 44100, 2, group=group)),
+    ):
+        walls = {"single": [], "sharded": []}
+        out = {}
+        for c in counters:
+            c.reset()
+        for name, fn in (("single", single_fn), ("sharded", sharded_fn),
+                         ("sharded", sharded_fn), ("single", single_fn)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = fn(ups)
+            walls[name].append(time.perf_counter() - t0)
+        for a, b, what in zip(out["single"], out["sharded"], ("hist", "loudness", "peak")):
+            check(a.shape == b.shape and bool((a == b).all()),
+                  f"sharded {label} dispatch: {what} equals the single dispatch exactly")
+        want_k = (2 + 2 * 2) if label == "light" else 0  # single x2, two shards x2
+        check(ek.COUNT.kernel == want_k and hk.COUNT.kernel == want_k
+              and sum(c.plain for c in counters) == 0,
+              f"sharded {label}: K1 {ek.COUNT.kernel}, K2 {hk.COUNT.kernel} launches")
+        sharded[label] = walls
+    for c in counters:
+        c.reset()
+    dryrun.dryrun_multichip(2, device=dev)
+    k3 = cc.COUNT.kernel
+    check(k3 > 0 and ek.COUNT.kernel >= 3 and sum(c.plain for c in counters) == 0,
+          f"dryrun_multichip(2) launched K3 {k3}, K1 {ek.COUNT.kernel} times, no plain call")
+
+    def fmt(n):
+        picked = [run for k, run in runs if k == n]
+        return (f"{n} Runner{'s' if n > 1 else ''}: walls "
+                + ", ".join(f"{r['wall']:.3f}" for r in picked) + " s ("
+                + ", ".join(f"{audio_s / r['wall']:.0f}x" for r in picked)
+                + "), device busy " + ", ".join(f"{r['busy']:.1%}" for r in picked)
+                + ", batches per Runner "
+                + ", ".join(str([len(x) for x in r["routes"]]) for r in picked)
+                + ", peak memory " + ", ".join(f"{r['peak_gb']:.3f}" for r in picked) + " GB")
+
+    print(f"multi_runner {card}: analyze_library over {n_files} files "
+          f"({len(mp3_paths)} MP3, {len(aac_paths)} M4A, {audio_s / 3600:.3f} audio-hours), "
+          f"scans in turns (one, two, two, one Runner on {dev}): {fmt(1)}; {fmt(2)}; every "
+          f"track's histogram, loudness and peak exactly equal in all four scans, album "
+          f"histograms equal the host sums, K1 = K2 launches = MP3 batches "
+          f"({runs[1][1]['k1']}), plain calls 0; one {BATCH_TRACKS}-track batch split over "
+          f"the two Runners against the single dispatch (exactly equal), walls in turns "
+          f"(single, sharded, sharded, single): "
+          + "; ".join(f"{k} single {w['single'][0]:.3f}, {w['single'][1]:.3f} s, sharded "
+                      f"{w['sharded'][0]:.3f}, {w['sharded'][1]:.3f} s"
+                      for k, w in sharded.items())
+          + f"; dryrun_multichip(2) ok, K3 launches {k3}", flush=True)
+    return {"class_core_gemm_dryrun": k3}
+
+
+def multihost_phase(dev, card, clips):
+    """Two and three processes on the one card, as real subprocesses of
+    `python -m mp3rgain_tpu_torch.cli` with the MP3RGAIN_* environment (a
+    gloo group over localhost): the album block of 32 files in two
+    processes against one process; an empty slice; byte surgery on a
+    slice; dryrun_multihost(2)."""
+    import shutil
+    import socket
+    import subprocess
+    import sys
+    import tempfile
+
+    from mp3rgain_tpu_torch.parallel import dryrun
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = {k: v for k, v in os.environ.items() if not k.startswith("MP3RGAIN_")}
+    base["PYTHONPATH"] = os.pathsep.join(
+        [here] + [p for p in base.get("PYTHONPATH", "").split(os.pathsep) if p])
+    base["MP3RGAIN_GROUP_TIMEOUT_S"] = "240"
+
+    def run_group(cmd, n):
+        """`cmd` as n processes of one group: [(exit code, stdout, stderr)]
+        and the wall; every child is stopped before this returns."""
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        env = [dict(base) for _ in range(n)]
+        if n > 1:
+            for pid, e in enumerate(env):
+                e.update(MP3RGAIN_COORDINATOR=f"localhost:{port}",
+                         MP3RGAIN_NUM_PROCESSES=str(n), MP3RGAIN_PROCESS_ID=str(pid))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(cmd, env=e, cwd=here, text=True, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE) for e in env]
+        try:
+            out = []
+            for p in procs:
+                o, err = p.communicate(timeout=CHILD_TIMEOUT_S)
+                out.append((p.returncode, o, err))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        return out, time.perf_counter() - t0
+
+    def doc_of(rc, out, err, what):
+        check(rc == 0, f"{what}: exit code {rc}: {err[-1500:]}")
+        return json.loads(out[out.index("{"):])
+
+    bench_path, mono_path, transient_path = clips
+    cli_cmd = [sys.executable, "-m", "mp3rgain_tpu_torch.cli"]
+    root = tempfile.mkdtemp(prefix="mp3rgain-multihost-")
+    try:
+        files = []
+        for i in range(32):  # two buckets, three lengths, interleaved
+            kind, src = (("bench", bench_path), ("transient", transient_path),
+                         ("mono", mono_path), ("bench", bench_path))[i % 4]
+            files.append(os.path.join(root, f"t{i:02d}_{kind}.mp3"))
+            os.symlink(src, files[-1])
+        argv = ["-a", "-n", "-o", "json", *files]
+        (single,), single_s = run_group(cli_cmd + argv, 1)
+        ref = doc_of(*single, "cli -a in one process")
+        check(len(ref["files"]) == 32 and "album" in ref, "one process: 32 files and an album")
+        pair, pair_s = run_group(cli_cmd + argv, 2)
+        for pid, res in enumerate(pair):
+            doc = doc_of(*res, f"cli -a, process {pid} of 2")
+            check([f["file"] for f in doc["files"]] == files[pid::2],
+                  f"process {pid} of 2 prints its slice")
+            check(doc["album"] == ref["album"],
+                  f"process {pid} of 2: album {doc['album']} equals one process's "
+                  f"{ref['album']} exactly")
+            for a, b in zip(doc["files"], ref["files"][pid::2]):
+                check(a["gain_applied_steps"] == b["gain_applied_steps"]
+                      and abs(a["loudness_db"] - b["loudness_db"]) <= 0.02 + 1e-9,
+                      f"process {pid} of 2: {a['file']} against one process")
+
+        # Three processes over two files: the third's slice is empty, it
+        # joins the union all the same, and every process exits 0.
+        few = ["-a", "-n", "-o", "json", *files[:2]]
+        (one_few,), _ = run_group(cli_cmd + few, 1)
+        ref_few = doc_of(*one_few, "cli -a over 2 files in one process")
+        triple, triple_s = run_group(cli_cmd + few, 3)
+        docs = [doc_of(*res, f"cli -a over 2 files, process {pid} of 3")
+                for pid, res in enumerate(triple)]
+        check([len(d["files"]) for d in docs] == [1, 1, 0]
+              and all(d["album"] == ref_few["album"] for d in docs),
+              f"3 processes over 2 files: slices {[len(d['files']) for d in docs]}, albums "
+              f"{[d['album'] for d in docs]} vs {ref_few['album']}")
+
+        # Byte surgery under the coordinator: no peer, no torch, the slice only.
+        copies = []
+        for i in range(4):
+            copies.append(os.path.join(root, f"g{i}.mp3"))
+            shutil.copy(transient_path, copies[-1])
+        before = [open(f, "rb").read() for f in copies]
+        prog = ("import json, sys\n"
+                "from mp3rgain_tpu_torch import cli\n"
+                "rc = cli.main(['-g', '2', *sys.argv[1:]])\n"
+                "print(json.dumps({'rc': rc, 'torch': 'torch' in sys.modules}))\n")
+        env = dict(base, MP3RGAIN_COORDINATOR="localhost:1", MP3RGAIN_NUM_PROCESSES="2",
+                   MP3RGAIN_PROCESS_ID="1")
+        proc = subprocess.run([sys.executable, "-c", prog, *copies], env=env, cwd=here,
+                              capture_output=True, text=True, timeout=CHILD_TIMEOUT_S)
+        check(proc.returncode == 0, f"-g 2 under the coordinator: {proc.stderr[-800:]}")
+        check(json.loads(proc.stdout.strip().splitlines()[-1]) == {"rc": 0, "torch": False},
+              f"-g 2 under the coordinator loads no torch: {proc.stdout[-300:]}")
+        changed = [open(f, "rb").read() != b for f, b in zip(copies, before)]
+        check(changed == [False, True, False, True],
+              f"-g 2 as process 1 of 2 rewrites its slice only: {changed}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    t0 = time.perf_counter()
+    dryrun.dryrun_multihost(2, device=dev, timeout_s=CHILD_TIMEOUT_S)
+    dry_s = time.perf_counter() - t0
+    a = ref["album"]
+    print(f"multihost {card}: cli -a -n -o json over 32 files (symlinks to three clips, two "
+          f"buckets) as subprocesses on {dev}, gloo over localhost: one process "
+          f"{single_s:.3f} s; two processes {pair_s:.3f} s, each printed its 16-file slice "
+          f"and both the one-process album block exactly (gain {a['gain_db']:.2f} dB, "
+          f"{a['gain_steps']} steps, peak {a['peak']:.6f}); three processes over 2 files "
+          f"{triple_s:.3f} s, the empty slice joined the union, exit codes 0, 0, 0; -g 2 as "
+          f"process 1 of 2 with no coordinator listening rewrote files 1 and 3 of 4 and "
+          f"loaded no torch; dryrun_multihost(2) ok in {dry_s:.3f} s (walls include each "
+          f"process's start, imports and table builds)", flush=True)
+
+
+def gui_phase(dev, card, clips):
+    """gui.AppState(device="cuda") over 15 MP3 files, below
+    scan.BATCH_THRESHOLD: analyze_tracks and analyze_album give the CLI's
+    gains; apply then undo restores every byte."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from mp3rgain_tpu_torch import cli, gui, scan
+
+    n = scan.BATCH_THRESHOLD - 1
+    root = tempfile.mkdtemp(prefix="mp3rgain-gui-")
+    try:
+        files = []
+        for i in range(n):
+            files.append(os.path.join(root, f"t{i:02d}.mp3"))
+            shutil.copy(clips[i % len(clips)], files[-1])
+        before = [open(f, "rb").read() for f in files]
+
+        def cli_json(flag):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main([flag, "--dry-run", "-o", "json", *files])
+            check(rc == 0, f"cli {flag} exit code {rc}")
+            return json.loads(out.getvalue())
+
+        tracks, album = cli_json("-r"), cli_json("-a")
+        state = gui.AppState(device=str(dev))
+        check(state.add_folder(root) == n, "the GUI lists the 15 files")
+        t0 = time.perf_counter()
+        state.analyze_tracks()
+        tracks_s = time.perf_counter() - t0
+        for entry, row, f in zip(state.files, state.rows(), tracks["files"]):
+            check(str(entry.path) == f["file"] and entry.status == "analyzed",
+                  f"{entry.name}: {entry.status} {entry.error}")
+            check(abs(entry.track_gain_db - (64.82 - f["loudness_db"])) <= 1e-9
+                  and entry.peak == f["peak"]
+                  and row["gain_steps"] == str(f["gain_applied_steps"]),
+                  f"{entry.name}: GUI gain {entry.track_gain_db}, steps {row['gain_steps']} "
+                  f"vs cli {64.82 - f['loudness_db']}, {f['gain_applied_steps']}")
+        t0 = time.perf_counter()
+        state.analyze_album()
+        album_s = time.perf_counter() - t0
+        check(all(abs(e.album_gain_db - album["album"]["gain_db"]) <= 1e-9
+                  for e in state.files),
+              f"GUI album gain {state.files[0].album_gain_db} vs cli "
+              f"{album['album']['gain_db']}")
+        applied = state.apply_gain(use_album=False)
+        changed = sum(open(f, "rb").read() != b for f, b in zip(files, before))
+        check(applied == n and changed > 0, f"apply: {applied} applied, {changed} rewritten")
+        undone = state.undo_all()
+        check(undone == changed and [open(f, "rb").read() for f in files] == before,
+              f"undo restored the bytes of {undone} of {changed} files")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"gui {card}: AppState(device={str(dev)!r}) over {n} MP3 files: analyze_tracks "
+          f"{tracks_s:.3f} s, analyze_album {album_s:.3f} s, gains and steps equal cli -r, "
+          f"album gain {state.files[0].album_gain_db:+.2f} dB equals cli -a; apply rewrote "
+          f"{changed} files, undo restored every byte", flush=True)
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1101,7 +1465,12 @@ def main() -> None:
     # --- 11. the per-track CLI path ---------------------------------------------------
     per_track_cli_phase(dev, card, clips[0], aac_clips[0])
 
-    # --- 12. times ---------------------------------------------------------------
+    # --- 12. two Runners on the card, two processes on the card, the GUI -----------
+    multi = multi_runner_phase(dev, card, u, clips, aac_clips)
+    multihost_phase(dev, card, clips)
+    gui_phase(dev, card, clips)
+
+    # --- 13. times ---------------------------------------------------------------
     dev_s = timing["device_ms"] / 1e3
     h_dev_s = h_timing["device_ms"] / 1e3
     split = timing["prep_s"] + timing["h2d_s"] + dev_s
@@ -1141,7 +1510,9 @@ def main() -> None:
         {"name": "class_core_gemm", "route": "cuda",
          "source": "mp3rgain_tpu_torch/csrc/class_core_gemm.cu",
          "replaces": "tools/hk_dotprobe.py:22",
-         "launches": h_counts["class_core_gemm"], "max_abs_err": max(k3_err, k3p_err),
+         "launches": h_counts["class_core_gemm"],
+         "dryrun_multichip_launches": multi["class_core_gemm_dryrun"],
+         "max_abs_err": max(k3_err, k3p_err),
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3h_bound[0],
          "bound_by": k3h_bound[1], "library_ms": k3_lib_ms,
          "probe_ms": k3p_ms, "probe_plain_ms": k3p_plain_ms,

@@ -24,7 +24,14 @@ scans with a resumable manifest) over parallel.runner.analyze_library;
 the replaygain API; analysis.analyze_track_internal / analyze_album /
 find_peak_amplitude; parallel.runner.Runner.analyze_unpacked_light and
 .analyze_unpacked; and decode.synthesis.decode_file, each on the CUDA
-card unless given device="cpu". python -m
+card unless given device="cpu"; the curses GUI (python -m
+mp3rgain_tpu_torch.gui, a copy too). Several GPUs in one process:
+parallel.runner.RunnerGroup and analyze_library(runners=...); several
+processes: parallel.multihost (a gloo group named by MP3RGAIN_COORDINATOR,
+MP3RGAIN_NUM_PROCESSES and MP3RGAIN_PROCESS_ID), whose album union every
+process of an album command joins; parallel.dryrun checks both. python -m
 mp3rgain_tpu_torch.tools.hk_dotprobe times K3, and
 mp3rgain_tpu_torch.tools.host_probe the scan's host side.
 """
+
+__version__ = "0.1.0"

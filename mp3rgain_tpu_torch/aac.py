@@ -1,6 +1,7 @@
 """AAC/M4A analysis path: host AAC-LC front-end + device DSP.
 
-Counterpart of the single-device paths of mp3rgain_tpu/aac.py. The AAC
+Counterpart of mp3rgain_tpu/aac.py (analyze_batch_q_sharded runs a batch
+over several devices, one parallel.runner.Runner each). The AAC
 path shares the MP3 path's equal-loudness filter and histogram; only the
 decode back-end differs (AAC IMDCT and windowing instead of the MP3
 hybrid filterbank and polyphase). Two routes, both batched through
@@ -329,6 +330,21 @@ def analyze_batch_q(unpacked: list, sample_rate: int, n_channels: int, *,
     runner = runner or pr.shared_runner(device)
     return runner.collect(runner.launch(
         runner.prepare_aac_q(unpacked, sample_rate, n_channels)))
+
+
+def analyze_batch_q_sharded(unpacked: list, sample_rate: int, n_channels: int, *,
+                            devices="cuda", group: pr.RunnerGroup | None = None):
+    """analyze_batch_q over several devices: the batch is split across the
+    Runners of `group` (or of `devices`, as parallel.runner.runners_for
+    reads them) the way RunnerGroup.dispatch_light_sharded splits an MP3
+    batch, each shard runs the whole device-prep pipeline on its Runner,
+    and the results come back in the original track order. One device, or
+    fewer tracks than devices: the single-device batch. The shards are
+    independent launches, so none is padded to another's shape (the
+    packer's force_shapes is not used)."""
+    group = group or pr.RunnerGroup(devices)
+    return group.collect(group.dispatch_sharded(
+        "prepare_aac_q", unpacked, sample_rate, n_channels))
 
 
 def analyze_batch(unpacked: list, sample_rate: int, n_channels: int, *,

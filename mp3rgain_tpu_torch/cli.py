@@ -6,12 +6,14 @@ The port's copy of mp3rgain_tpu/cli.py. It differs from it only where it
 must: ReplayGain analysis (-r, -a, info with -o tsv, and -x's decoded
 peak) runs through the port's replaygain and scan modules, on the CUDA
 card (a caller of main() may pass device="cpu"; there is no device
-flag); _require_replaygain names the torch pipeline; and a multi-host run
-(MP3RGAIN_COORDINATOR set) exits 1, because the cross-host album union is
-not ported yet (ROADMAP Queue 1 item 11) and a process-local album gain
-would be wrong. The byte-surgery commands (-g, -l, -u, -s c, -s d, info
-in text or JSON) import no torch; -x imports it for its decoded peak, as
-the JAX package's -x imports jax.
+flag); _require_replaygain names the torch pipeline; and in a multi-host
+group (MP3RGAIN_COORDINATOR, parallel/multihost.py) a process with an
+empty slice goes on into its command, so that an album command's union
+finds every process there, and the processes refuse an album together
+when a file failed on any of them. The byte-surgery commands (-g, -l, -u,
+-s c, -s d, info in text or JSON) import no torch, under a coordinator
+too; -x imports it for its decoded peak, as the JAX package's -x imports
+jax.
 
 Drop-in mp3gain replacement; flag grammar, dispatch priority, clipping
 semantics, and output formats mirror the reference CLI (the reference
@@ -65,10 +67,6 @@ from .utils import Color, ProgressBar, colorize
 
 VERSION = "0.1.0"
 PROGRESS_THRESHOLD = 5
-MULTIHOST_MESSAGE = (
-    "multi-host runs (MP3RGAIN_COORDINATOR) are not ported to the torch "
-    "package yet (ROADMAP Queue 1 item 11); use mp3rgain_tpu.cli"
-)
 
 
 class OutputFormat(Enum):
@@ -531,12 +529,19 @@ def run(opts: Options) -> int:
             _err("no audio files found (MP3/M4A)")
             return 1
 
-    # Multi-host scans (MP3RGAIN_COORDINATOR / _NUM_PROCESSES /
-    # _PROCESS_ID on every host) are not ported: each process would work
-    # its slice and compute a process-local album gain.
+    # Multi-host scans: when launched inside a process group
+    # (MP3RGAIN_COORDINATOR / _NUM_PROCESSES / _PROCESS_ID on every
+    # host), each process works its round-robin slice of the list; album
+    # analysis reduces over the group (scan.album_union) so all processes
+    # apply identical album steps. The module imports no torch, which the
+    # pure host byte-surgery commands (-g/-l/-u/...) must not pay for. A
+    # process with an empty slice goes on: whether a command joins the
+    # union depends on the options only, never on the slice.
     if os.environ.get("MP3RGAIN_COORDINATOR"):
-        _err(MULTIHOST_MESSAGE)
-        return 1
+        from .parallel import multihost
+
+        if multihost.maybe_initialize_from_env():
+            opts.files = multihost.process_slice(opts.files)
 
     if opts.assume_mpeg2 and not opts.quiet and opts.output_format == OutputFormat.TEXT:
         print(
@@ -918,8 +923,15 @@ def _require_replaygain() -> None:
 
 
 def _use_batch(files: list[Path], opts: Options) -> bool:
+    from .parallel import multihost
     from .scan import BATCH_THRESHOLD
 
+    if multihost.is_multihost():
+        # Distributed runs must take the batch path, --no-batch or not:
+        # only its album union performs the cross-process reduction
+        # (scan.album_union); the non-batch analyze_album would compute
+        # a process-local album gain.
+        return True
     if opts.batch_mode == "never":
         return False
     if opts.batch_mode == "always":
@@ -999,6 +1011,13 @@ def cmd_album_gain(files: list[Path], opts: Options) -> int:
             failures = [
                 (p, r) for p, r in scanned.results.items() if isinstance(r, Exception)
             ]
+            from .parallel import multihost
+
+            if multihost.is_multihost():
+                # Every process learns of a failure on any slice before
+                # the union, so that none waits there for one that left.
+                if multihost.any_failed_global(bool(failures)) and not failures:
+                    raise RuntimeError("a file failed on another process's slice")
             if failures:
                 raise RuntimeError(f"{failures[0][0]}: {failures[0][1]}")
             loud, gain, peak = scan_mod.album_union(scanned, files)

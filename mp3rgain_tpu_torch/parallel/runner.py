@@ -1,6 +1,9 @@
-"""Batched ReplayGain analysis on one device, over both MP3 routes.
+"""Batched ReplayGain analysis on one device or several, over both MP3 routes.
 
-Counterpart of the single-device paths of mp3rgain_tpu/parallel/runner.py.
+Counterpart of mp3rgain_tpu/parallel/runner.py: Runner is its MeshRunner on
+one device, RunnerGroup its MeshRunner over several (one Runner per
+device, independent launches instead of shard_map), and analyze_library
+deals a library's batches across the Runners it is given.
 
 The raw-bits ("light") route, the main path: host light walk → host lane
 sort and pack (prepare_batch_arrays_light) → host-to-device upload
@@ -47,7 +50,7 @@ from ..decode import hybrid_kernel as hk
 from ..decode.format_tables import SR_ROW
 from ..decode.synthesis import DecodeTables, GranuleBatch, _derive_fields, decode_batch
 from ..device import mark_stage as _stage
-from ..device import resolve_device
+from ..device import require_cuda, resolve_device
 from ..native import _lib
 from ..ops import histogram as hi
 from ..ops.iir import EqualLoudness
@@ -570,6 +573,8 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 _ALIGN = 256  # byte alignment of each array inside a staged upload
 _GROW_UNIT = 1 << 20
 _STAGING_SLOTS = 2  # pinned slots: one being copied while the next fills
+# Collected batches a Runner keeps timings of: a 64,000-track scan's worth.
+TIMINGS_KEPT = 1024
 
 
 @dataclass
@@ -639,12 +644,13 @@ class Runner:
         self._aac_synthesis: nn.Module | None = None
         self._lock = threading.RLock()
         # route, prep_s / h2d_s (host clock) and device_ms of the last
-        # collected batch, and of every collected batch in collect order.
+        # collected batch, and of the last TIMINGS_KEPT collected batches
+        # in collect order (a shared Runner lives as long as the process).
         self.last_timings: dict | None = None
-        self.timings: list[dict] = []
-        # CUDA only: each collected batch's device-busy intervals (its
+        self.timings: deque[dict] = deque(maxlen=TIMINGS_KEPT)
+        # CUDA only: each of those batches' device-busy intervals (its
         # upload, then its compute + readback), ms on the runner's clock.
-        self.busy_ms: list[tuple[float, float]] = []
+        self.busy_ms: deque[tuple[float, float]] = deque(maxlen=2 * TIMINGS_KEPT)
         if self.device.type == "cuda":
             self._compute = torch.cuda.current_stream(self.device)
             self._copy = torch.cuda.Stream(self.device)
@@ -862,13 +868,15 @@ class Runner:
             device_ms = handle.device_ms
         else:
             copy_start, copy_end, start, end = handle.events
-            end.synchronize()
-            hist = np.array(handle.hist.numpy())  # off the pinned block
-            stats = handle.stats.numpy()
-            idx, peaks = stats[0], stats[1].copy()
-            device_ms = start.elapsed_time(end)
-            self.busy_ms += [(self._origin.elapsed_time(a), self._origin.elapsed_time(b))
-                             for a, b in ((copy_start, copy_end), (start, end))]
+            with _on(self.device):  # the caller's thread may sit on another card
+                end.synchronize()
+                hist = np.array(handle.hist.numpy())  # off the pinned block
+                stats = handle.stats.numpy()
+                idx, peaks = stats[0], stats[1].copy()
+                device_ms = start.elapsed_time(end)
+                self.busy_ms += [
+                    (self._origin.elapsed_time(a), self._origin.elapsed_time(b))
+                    for a, b in ((copy_start, copy_end), (start, end))]
         self.last_timings = {"route": handle.route, "prep_s": handle.prep_s,
                              "h2d_s": handle.h2d_s, "device_ms": device_ms}
         self.timings.append(self.last_timings)
@@ -912,6 +920,133 @@ def shared_runner(device="cuda") -> Runner:
         if key not in _shared:
             _shared[key] = Runner(key)
         return _shared[key]
+
+
+def runners_for(device="cuda") -> list[Runner]:
+    """The Runners of a device argument. "cuda" (no index) means every
+    visible GPU, one Runner each; "cuda:0" or "cpu" means that device; a
+    list names the devices one by one. Distinct devices get the process's
+    shared Runner; a device named a second time gets a Runner of its own
+    (two Runners on one device share its compute stream and nothing
+    else). Asking for CUDA without a card raises."""
+    if isinstance(device, (str, torch.device)):
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            require_cuda()
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        else:
+            devices = [dev]
+    else:
+        devices = list(device)
+    if not devices:
+        raise ValueError("no device named")
+    out, seen = [], set()
+    for d in devices:
+        key = str(resolve_device(d))
+        out.append(Runner(key) if key in seen else shared_runner(key))
+        seen.add(key)
+    return out
+
+
+@dataclass
+class _Sharded:
+    """One batch dispatched over a RunnerGroup: a handle per Runner and
+    shard_index[d][j], the original index of Runner d's j-th track."""
+
+    handles: list
+    shard_index: list
+    total: int
+
+
+class RunnerGroup:
+    """Several devices in one process, one Runner each (its own copy
+    stream, pinned ring and tables): the counterpart of the JAX package's
+    MeshRunner over more than one device. The Runners run independent
+    launches, so the shards of a batch need no common shape.
+
+    RunnerGroup("cuda") takes every visible GPU, RunnerGroup(["cuda:0",
+    "cuda:1"]) those two, RunnerGroup(runners=[...]) the Runners given
+    (runners_for says how a device argument becomes Runners).
+    analyze_library(paths, runners=group.runners) deals a library's
+    batches across them."""
+
+    def __init__(self, devices="cuda", *, runners: list[Runner] | None = None):
+        self.runners = list(runners) if runners is not None else runners_for(devices)
+        if not self.runners:
+            raise ValueError("a RunnerGroup needs at least one Runner")
+        if len({r.device.type for r in self.runners}) != 1:
+            raise ValueError("a RunnerGroup's devices are all CUDA or all CPU")
+
+    @property
+    def n_devices(self) -> int:
+        return len(self.runners)
+
+    @property
+    def devices(self) -> list[torch.device]:
+        return [r.device for r in self.runners]
+
+    def dispatch_sharded(self, prepare: str, unpacked: list, sample_rate: int,
+                         n_channels: int):
+        """Split one batch across the Runners (tracks sorted by descending
+        length, Runner d takes every n-th from d on, as the JAX package's
+        prepare_batch_arrays_light_sharded deals them), prepare each shard
+        with the Runner method named `prepare` and launch it on its
+        Runner; returns a handle for collect(). Fewer tracks than Runners:
+        the whole batch on the first Runner."""
+        n = len(self.runners)
+        if n == 1 or len(unpacked) < n:
+            first = self.runners[0]
+            return _Sharded(
+                [first.launch(getattr(first, prepare)(unpacked, sample_rate, n_channels))],
+                [list(range(len(unpacked)))], len(unpacked))
+        order = sorted(range(len(unpacked)), key=lambda i: unpacked[i].n, reverse=True)
+        shard_index = [order[d::n] for d in range(n)]
+        handles = [
+            r.launch(getattr(r, prepare)([unpacked[i] for i in idxs], sample_rate,
+                                         n_channels))
+            for r, idxs in zip(self.runners, shard_index)]
+        return _Sharded(handles, shard_index, len(unpacked))
+
+    def dispatch_light_sharded(self, unpacked: list, sample_rate: int,
+                               n_channels: int):
+        """Enqueue a raw-bits MP3 batch sharded over the Runners."""
+        return self.dispatch_sharded("prepare_light", unpacked, sample_rate, n_channels)
+
+    def collect(self, handle: _Sharded):
+        """Wait for every shard; host arrays (hist (B, 12000) int32,
+        loudness (B,) dB, peak (B,)) in the original track order."""
+        hist = np.empty((handle.total, hi.HISTOGRAM_SIZE), np.int32)
+        louds = np.empty(handle.total, np.float64)
+        peaks = np.empty(handle.total, np.float32)
+        for r, h, idxs in zip(self.runners, handle.handles, handle.shard_index):
+            hist[idxs], louds[idxs], peaks[idxs] = r.collect(h)
+        return hist, louds, peaks
+
+    def album_reduce_device(self, hist: np.ndarray, peak: np.ndarray):
+        """Album histogram and peak of (B, 12000) per-track histograms and
+        (B,) peaks: each device sums its contiguous share of the rows in
+        int64 and takes its share's peak, the partial results go to the
+        first device and are added there. Returns (hist (12000,) int64,
+        peak float), equal to the host sum exactly."""
+        n = len(self.runners)
+        parts, tops = [], []
+        for r, rows, pk in zip(self.runners, np.array_split(np.asarray(hist), n),
+                               np.array_split(np.asarray(peak, np.float32), n)):
+            if len(rows):
+                with _on(r.device):
+                    parts.append(_to_device(rows, r.device).sum(dim=0, dtype=torch.int64))
+                    tops.append(_to_device(pk, r.device).max())
+        total = _sum_on_first(parts, self.runners[0].device)
+        return total.cpu().numpy(), max((float(t) for t in tops), default=0.0)
+
+
+def _sum_on_first(parts: list, device: torch.device) -> torch.Tensor:
+    """Per-device (12000,) int64 partial histograms, brought to `device`
+    and added there."""
+    total = torch.zeros(hi.HISTOGRAM_SIZE, dtype=torch.int64, device=device)
+    for part in parts:
+        total += part.to(device)
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1033,6 +1168,24 @@ def _aac_codec(runner: Runner, device_prep: bool | None) -> _Codec:
         padded_rows, aac.audio_seconds, est_bytes)
 
 
+class _Lane:
+    """One Runner's queue in analyze_library: its single uploader thread
+    (launch order is the order batches were dealt to it), its batches in
+    flight as (future, idxs, sr, nch, ups, est) and, for an album, its
+    device's (12000,) int64 histogram sum."""
+
+    def __init__(self, runner: Runner, album: bool):
+        self.runner = runner
+        self.uploader = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix=f"mp3rgain-upload-{runner.device}")
+        self.inflight: deque = deque()
+        self.album = (torch.zeros(hi.HISTOGRAM_SIZE, dtype=torch.int64,
+                                  device=runner.device) if album else None)
+
+    def queued_bytes(self) -> int:
+        return sum(entry[5] for entry in self.inflight)
+
+
 # Rows cap of an AAC batch, in padded frame-channel lanes (bpad x f_max):
 # an H100 held 28.6 KB per lane at the q route's peak (9.9 GB at the 64 x
 # 60 s batch's 346,112 lanes, PERF.md), so this bounds a batch near 19 GB
@@ -1064,6 +1217,7 @@ def analyze_library(
     wave_size: int | None = None,
     batch_cb=None,
     *,
+    runners: list[Runner] | None = None,
     max_batch: int = 64,
     rows_cap: int | None = None,
     file_type: str = "mp3",
@@ -1071,36 +1225,47 @@ def analyze_library(
     inflight_bytes: int = INFLIGHT_BYTES,
     pressure_backoff_s: float = 10.0,
 ) -> BatchResult:
-    """Analyze many tracks with bucketed batching and fault isolation.
+    """Analyze many tracks with bucketed batching and fault isolation, on
+    `runner`, or dealt across `runners` (one per device; a RunnerGroup's),
+    or by default on every visible GPU (runners_for("cuda")).
 
     The library streams in waves of `wave_size` files (4 x max_batch by
     default; the first wave is max_batch files, so the device starts after
-    one batch's walk), walked by a thread pool of min(n, cpu_count - PREP_THREADS,
-    16) (the native walk releases the GIL), so a 10k-track scan never
-    holds more than a wave of unpacked audio plus one partial batch per
-    (sample rate, channels) bucket. Full buckets are cut into
-    length-sorted, rows_cap-bounded batches, prepared on a pool of
-    PREP_THREADS and launched (staged, uploaded, enqueued) in batch order
-    by one uploader thread while the main thread walks the next wave;
-    results are collected one batch behind, with at most MAX_INFLIGHT
-    batches in flight and, beyond two, only while their estimated bytes
-    stay under inflight_bytes. device_entropy=False runs the host-decoded
-    route (Runner.prepare_heavy). file_type="aac" scans AAC/M4A files the
-    same way (buckets, batches, admission, halving), on the route
-    device_prep names (aac.use_device_prep); rows_cap defaults to 640,000
-    granule-channel rows for MP3 and AAC_ROWS_CAP lanes for AAC. A
-    track's result does not depend on the batch it rode in.
+    one batch's walk), walked by a thread pool of min(n, cpu_count - prep
+    threads, 16) (the native walk releases the GIL), so a 10k-track scan
+    never holds more than a wave of unpacked audio plus one partial batch
+    per (sample rate, channels) bucket. Full buckets are cut into
+    length-sorted, rows_cap-bounded batches and prepared on a shared pool
+    of PREP_THREADS threads per Runner. Each batch goes to the Runner with
+    the fewest estimated bytes in flight; every Runner has its own
+    uploader thread, which launches (stages, uploads, enqueues) its
+    batches in the order they were dealt, while the main thread walks the
+    next wave. Results are collected one batch behind, with at most
+    MAX_INFLIGHT batches in flight on a Runner and, beyond two, only while
+    their estimated bytes stay under inflight_bytes. device_entropy=False
+    runs the host-decoded route (Runner.prepare_heavy). file_type="aac"
+    scans AAC/M4A files the same way (buckets, batches, admission,
+    halving), on the route device_prep names (aac.use_device_prep);
+    rows_cap defaults to 640,000 granule-channel rows for MP3 and
+    AAC_ROWS_CAP lanes for AAC. A track's result depends neither on the
+    batch it rode in nor on the Runner that batch went to.
 
     A file that fails to read or walk becomes a failed TrackOutcome and
     the scan goes on. A batch whose dispatch runs out of device memory
-    is retried in halves; a single track that still fails after a
-    pressure_backoff_s pause is isolated as failed. Any other error
-    raises. With album=True the batches' histograms are summed on the
-    device (int64). batch_cb, if given, is called with the TrackOutcomes
-    of each collected batch (scan checkpointing)."""
-    runner = runner or shared_runner()
-    codec = (_aac_codec(runner, device_prep) if file_type == "aac"
-             else _mp3_codec(runner, device_entropy))
+    is retried in halves on the Runner that failed; a single track that
+    still fails after a pressure_backoff_s pause is isolated as failed.
+    Any other error raises. With album=True the batches' histograms are
+    summed on their devices (int64, one sum per Runner) and the sums added
+    on the first device at the end. batch_cb, if given, is called with the
+    TrackOutcomes of each collected batch (scan checkpointing)."""
+    if runners is None:
+        runners = [runner] if runner is not None else runners_for("cuda")
+    elif runner is not None:
+        raise ValueError("give runner or runners, not both")
+    group = RunnerGroup(runners=runners)  # checks the devices are of one kind
+    # The host prep (Runner.prepare_*) touches no device: any Runner's will do.
+    codec = (_aac_codec(group.runners[0], device_prep) if file_type == "aac"
+             else _mp3_codec(group.runners[0], device_entropy))
     if rows_cap is None:
         rows_cap = AAC_ROWS_CAP if file_type == "aac" else 640_000
     t0 = time.monotonic()
@@ -1111,40 +1276,41 @@ def analyze_library(
     outcomes: dict[int, TrackOutcome] = {}
     buckets: dict[tuple[int, int], list] = {}
     audio_seconds = 0.0
-    album_hist = (torch.zeros(hi.HISTOGRAM_SIZE, dtype=torch.int64,
-                              device=runner.device) if album else None)
-    inflight: deque = deque()  # (future, idxs, sr, nch, ups, est)
+    lanes = [_Lane(r, album) for r in group.runners]
 
     _unpack, prepare = codec.unpack, codec.prepare
 
-    def _dispatch(ups, sr, nch):
-        return runner.launch(prepare(ups, sr, nch), album=album_hist)
+    def _dispatch(lane, ups, sr, nch):
+        return lane.runner.launch(prepare(ups, sr, nch), album=lane.album)
 
-    def _launch(prepared):
-        return runner.launch(prepared.result(), album=album_hist)
+    def _launch(lane, prepared):
+        return lane.runner.launch(prepared.result(), album=lane.album)
 
-    def _dispatch_collect_halving(ups, idxs, sr, nch):
-        """Runs on the uploader thread after an out-of-memory dispatch:
-        dispatch and collect at once, halving the batch until it fits; at
-        one track, retry once after the backoff, then isolate it."""
+    def _dispatch_collect_halving(lane, ups, idxs, sr, nch):
+        """Runs on the lane's uploader thread after an out-of-memory
+        dispatch: dispatch and collect at once on the same Runner, halving
+        the batch until it fits; at one track, retry once after the
+        backoff, then isolate it."""
+        runner = lane.runner
         try:
-            return [(idxs, runner.collect(_dispatch(ups, sr, nch)))]
+            return [(idxs, runner.collect(_dispatch(lane, ups, sr, nch)))]
         except Exception as e:
             if not _retryable(e):
                 raise
             if runner.device.type == "cuda":
-                torch.cuda.empty_cache()
+                with _on(runner.device):
+                    torch.cuda.empty_cache()
             if len(ups) == 1:
                 time.sleep(pressure_backoff_s)
                 try:
-                    return [(idxs, runner.collect(_dispatch(ups, sr, nch)))]
+                    return [(idxs, runner.collect(_dispatch(lane, ups, sr, nch)))]
                 except Exception as e2:
                     if not _retryable(e2):
                         raise
                     return [(idxs, e2)]
             mid = len(ups) // 2
-            return (_dispatch_collect_halving(ups[:mid], idxs[:mid], sr, nch)
-                    + _dispatch_collect_halving(ups[mid:], idxs[mid:], sr, nch))
+            return (_dispatch_collect_halving(lane, ups[:mid], idxs[:mid], sr, nch)
+                    + _dispatch_collect_halving(lane, ups[mid:], idxs[mid:], sr, nch))
 
     def _finish_batch(idxs, sr, collected):
         if isinstance(collected, Exception):
@@ -1170,36 +1336,39 @@ def analyze_library(
         if batch_cb:
             batch_cb(done)
 
-    uploader = ThreadPoolExecutor(max_workers=1, thread_name_prefix="mp3rgain-upload")
-    preppers = ThreadPoolExecutor(max_workers=PREP_THREADS,
+    prep_threads = PREP_THREADS * len(lanes)
+    preppers = ThreadPoolExecutor(max_workers=prep_threads,
                                   thread_name_prefix="mp3rgain-prep")
 
-    def collect_one():
-        fut, idxs, sr, nch, ups, _est = inflight.popleft()
+    def collect_one(lane):
+        fut, idxs, sr, nch, ups, _est = lane.inflight.popleft()
         try:
             handle = fut.result()
         except Exception as e:
             if not _retryable(e):
                 raise
-            retried = uploader.submit(_dispatch_collect_halving, ups, idxs, sr, nch)
+            retried = lane.uploader.submit(_dispatch_collect_halving, lane, ups, idxs,
+                                           sr, nch)
             for idxs2, collected in retried.result():
                 _finish_batch(idxs2, sr, collected)
             return
-        _finish_batch(idxs, sr, runner.collect(handle))
+        _finish_batch(idxs, sr, lane.runner.collect(handle))
 
     def flush_bucket(key, members):
         sr, nch = key
         idxs = [i for i, _ in members]
         ups = [u for _, u in members]
         est = codec.est_bytes(ups)
-        while inflight and (
-            len(inflight) >= MAX_INFLIGHT
-            or (len(inflight) >= 2
-                and sum(e[5] for e in inflight) + est > inflight_bytes)
+        lane = min(lanes, key=_Lane.queued_bytes)  # ties go to the first
+        while lane.inflight and (
+            len(lane.inflight) >= MAX_INFLIGHT
+            or (len(lane.inflight) >= 2
+                and lane.queued_bytes() + est > inflight_bytes)
         ):
-            collect_one()
+            collect_one(lane)
         prepared = preppers.submit(prepare, ups, sr, nch)
-        inflight.append((uploader.submit(_launch, prepared), idxs, sr, nch, ups, est))
+        lane.inflight.append((lane.uploader.submit(_launch, lane, prepared), idxs, sr,
+                              nch, ups, est))
 
     def flush_ready(key, members, final=False):
         """Cut length-sorted, rows-capped batches off a bucket: whole
@@ -1213,7 +1382,7 @@ def analyze_library(
             del members[:c]
 
     # The walk leaves the prep threads their cores.
-    workers = min(max(len(paths), 1), max((os.cpu_count() or 1) - PREP_THREADS, 1), 16)
+    workers = min(max(len(paths), 1), max((os.cpu_count() or 1) - prep_threads, 1), 16)
     walkers = ThreadPoolExecutor(max_workers=workers) if workers > 1 else None
     first = min(wave_size, max_batch)
     bounds = [0, *range(first, len(paths), wave_size), len(paths)]
@@ -1237,10 +1406,13 @@ def analyze_library(
                 flush_ready(key, members)
         for key, members in buckets.items():
             flush_ready(key, members, final=True)
-        while inflight:
-            collect_one()
+        while any(lane.inflight for lane in lanes):
+            for lane in lanes:
+                if lane.inflight:
+                    collect_one(lane)
     finally:
-        uploader.shutdown(wait=True, cancel_futures=True)
+        for lane in lanes:
+            lane.uploader.shutdown(wait=True, cancel_futures=True)
         preppers.shutdown(wait=True, cancel_futures=True)
         if walkers is not None:
             walkers.shutdown(wait=True)
@@ -1250,6 +1422,7 @@ def analyze_library(
                          wall_seconds=time.monotonic() - t0)
     ok = [t for t in tracks if t.ok]
     if album and ok:
-        result.album_histogram = album_hist.cpu().numpy()
+        result.album_histogram = _sum_on_first(
+            [lane.album for lane in lanes], lanes[0].runner.device).cpu().numpy()
         result.album_peak = max(t.result.peak for t in ok)
     return result

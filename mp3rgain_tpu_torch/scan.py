@@ -144,10 +144,14 @@ class Manifest:
 
 
 def scan_files(paths, manifest_path=None, progress_cb=None, *, device="cuda",
-               runner=None, device_prep: bool | None = None) -> ScanResult:
+               runner=None, runners=None,
+               device_prep: bool | None = None) -> ScanResult:
     """Analyze many files with batching, fault isolation, and resume, on
-    `device` (or on `runner`, a parallel.runner.Runner, when given; the
-    device's shared Runner otherwise). device_prep names the AAC route
+    `device`: "cuda" is every visible GPU with the batches dealt across
+    them, "cuda:0" or "cpu" that device alone
+    (parallel.runner.runners_for). Given `runner` (one
+    parallel.runner.Runner) or `runners` (several, a RunnerGroup's), the
+    scan runs on those instead. device_prep names the AAC route
     (aac.use_device_prep; None is the device's default)."""
     from .analysis import _detect_file_type
     from .parallel import runner as parallel_runner
@@ -173,14 +177,18 @@ def scan_files(paths, manifest_path=None, progress_cb=None, *, device="cuda",
             continue
         (todo_aac if _detect_file_type(p) == "aac" else todo_mp3).append(p)
 
-    if todo_mp3 or todo_aac:
-        runner = runner or parallel_runner.shared_runner(device)
+    if runner is not None:
+        if runners is not None:
+            raise ValueError("give runner or runners, not both")
+        runners = [runner]
+    elif runners is None and (todo_mp3 or todo_aac):
+        runners = parallel_runner.runners_for(device)
 
     if todo_mp3:
-        _scan_batches(todo_mp3, out, manifest, progress_cb, runner)
+        _scan_batches(todo_mp3, out, manifest, progress_cb, runners)
 
     if todo_aac:
-        _scan_aac(todo_aac, out, manifest, progress_cb, runner, device_prep)
+        _scan_aac(todo_aac, out, manifest, progress_cb, runners, device_prep)
 
     manifest.save()
     out.wall_seconds = time.monotonic() - t0
@@ -188,7 +196,7 @@ def scan_files(paths, manifest_path=None, progress_cb=None, *, device="cuda",
 
 
 def _scan_batches(paths, out: ScanResult, manifest: Manifest, progress_cb,
-                  runner, keep_exceptions: bool = False, **library_args) -> None:
+                  runners, keep_exceptions: bool = False, **library_args) -> None:
     """analyze_library over `paths` into `out`, with a manifest checkpoint
     after every collected batch: its histograms are on the host already,
     so they go to the journal and a killed scan resumes from the last
@@ -203,7 +211,7 @@ def _scan_batches(paths, out: ScanResult, manifest: Manifest, progress_cb,
         manifest.save(force=False)
 
     batch = parallel_runner.analyze_library(
-        paths, runner=runner, batch_cb=checkpoint, **library_args)
+        paths, runners=runners, batch_cb=checkpoint, **library_args)
     out.audio_seconds += batch.audio_seconds
     for track in batch.tracks:
         if track.ok:
@@ -218,7 +226,7 @@ def _scan_batches(paths, out: ScanResult, manifest: Manifest, progress_cb,
 
 
 def _scan_aac(paths, out: ScanResult, manifest: Manifest, progress_cb,
-              runner, device_prep: bool | None = None) -> None:
+              runners, device_prep: bool | None = None) -> None:
     """Batch analysis of AAC files into `out`, on the MP3 scan's
     machinery: per-file unpack isolation on a thread pool (the native
     unpack drops the GIL), (sample rate, channels) buckets, length-sorted
@@ -227,7 +235,7 @@ def _scan_aac(paths, out: ScanResult, manifest: Manifest, progress_cb,
     checkpoint after every collected batch. A file that fails to unpack
     keeps the exception it raised, as in the JAX package; audio_seconds
     comes from decoded sample counts (histograms drop silent windows)."""
-    _scan_batches(paths, out, manifest, progress_cb, runner, keep_exceptions=True,
+    _scan_batches(paths, out, manifest, progress_cb, runners, keep_exceptions=True,
                   max_batch=BATCH_THRESHOLD * 4, file_type="aac",
                   device_prep=device_prep)
 
@@ -235,14 +243,12 @@ def _scan_aac(paths, out: ScanResult, manifest: Manifest, progress_cb,
 def album_union(scan: ScanResult, paths) -> tuple[float, float, float]:
     """(album_loudness, album_gain, album_peak) from per-track histograms.
 
-    The union of this process's tracks. Inside a multi-host process group
-    (MP3RGAIN_COORDINATOR set) it raises NotImplementedError: the
-    cross-host union is not ported yet (ROADMAP Queue 1 item 11), and a
-    process-local album gain would be silently wrong."""
-    if os.environ.get("MP3RGAIN_COORDINATOR"):
-        raise NotImplementedError(
-            "the multi-host album union is not ported to the torch package "
-            "yet (ROADMAP Queue 1 item 11)")
+    Inside a process group (MP3RGAIN_COORDINATOR and its two companions,
+    parallel/multihost.py) each process passes only ITS slice of the
+    album, possibly an empty one; the local union is then reduced over
+    the group (one all-reduce of the histogram, one of the peak), so
+    every process computes the identical global album gain. Every process
+    of the group must call this, whatever its slice."""
     total = np.zeros(hi.HISTOGRAM_SIZE, dtype=np.uint64)
     peak = 0.0
     for p in paths:
@@ -252,5 +258,9 @@ def album_union(scan: ScanResult, paths) -> tuple[float, float, float]:
             continue
         total += hist.astype(np.uint64)
         peak = max(peak, res.peak)
+    from .parallel import multihost
+
+    if multihost.is_multihost():
+        total, peak = multihost.album_union_global(total, peak)
     loud = hi.loudness_from_histogram(total)
     return loud, PINK_REF - loud, peak

@@ -16,7 +16,11 @@ the same lame-encoded fixtures:
   0.02 dB, peaks within rtol 2e-4;
 - a fresh interpreter running the byte surgery imports no torch, and
   `python -m mp3rgain_tpu_torch.cli` runs;
-- a multi-host group (MP3RGAIN_COORDINATOR) is refused with exit code 1.
+- in a multi-host group (MP3RGAIN_COORDINATOR and its companions) whose
+  coordinator cannot be reached, an album command is refused with exit
+  code 1 and the coordinator's address, not answered with a process-local
+  album, while byte surgery works the process's slice
+  (tests/test_torch_multihost.py runs real groups).
 """
 
 import json
@@ -293,11 +297,31 @@ def test_byte_surgery_imports_no_torch(fixtures_dir, tmp_path):
 
 
 def test_multi_host_is_refused(fixtures_dir, tmp_path, capsys, monkeypatch):
+    """A group whose coordinator cannot be reached: the album command
+    fails with the coordinator's address inside the time limit, with or
+    without --no-batch, and leaves the files alone; -r and byte surgery
+    need no peer and work this process's slice (files 1, 3, ...)."""
+    from mp3rgain_tpu_torch.parallel import multihost
+
     files = _copies(fixtures_dir, tmp_path / "lib")
+    before = [open(f, "rb").read() for f in files]
+    monkeypatch.setattr(multihost, "_config", None)
     monkeypatch.setenv("MP3RGAIN_COORDINATOR", "localhost:1")
-    for argv in (["-a", "--dry-run", *files], ["-r", "--batch", *files]):
+    monkeypatch.setenv("MP3RGAIN_NUM_PROCESSES", "2")
+    monkeypatch.setenv("MP3RGAIN_PROCESS_ID", "1")
+    monkeypatch.setenv("MP3RGAIN_GROUP_TIMEOUT_S", "2")
+    for argv in (["-a", *files], ["-a", "--no-batch", *files]):
         assert cli.main(argv, device="cpu") == 1
-        assert "ROADMAP Queue 1 item 11" in capsys.readouterr().err
+        err = capsys.readouterr().err
+        assert "could not join its group at localhost:1" in err and "process 1 of 2" in err
+    assert [open(f, "rb").read() for f in files] == before
+    doc = _json(cli.main, ["-r", "--dry-run", "-o", "json", *files], capsys, device="cpu")
+    assert [f["file"] for f in doc["files"]] == files[1::2]
+    assert cli.main(["-g", "2", *files]) == 0
+    out = capsys.readouterr().out
+    assert "to 1 file(s)" in out and os.path.basename(files[1]) in out
+    changed = [open(f, "rb").read() != b for f, b in zip(files, before)]
+    assert changed == [False, True, False]
 
 
 def test_analysis_without_a_card_fails_per_file(fixtures_dir, tmp_path, capsys):

@@ -427,3 +427,47 @@ def test_aac_decode_file_on_card_matches_cpu(dev):
     assert sr == sr_c == 44100 and got.shape == want.shape
     assert np.abs(got - want).max() < 1e-5
     assert aac_synthesis.EIGHT_SHORT in af.unpack_file(path).info[:, af.WINDOW_SEQ]
+
+
+def test_two_runners_on_the_card_equal_one(dev, tmp_path):
+    """analyze_library dealt across two Runners on the card gives every
+    track the one-Runner result exactly, K1 and K2 launch once per MP3
+    batch, and a batch split over the two equals the single dispatch."""
+    paths = []
+    for i in range(12):
+        name = (smoke.TRANSIENT_TRACK, smoke.MONO_TRACK)[i % 2]
+        paths.append(str(tmp_path / f"t{i:02d}.mp3"))
+        os.symlink(os.path.join(smoke.DATA_DIR, name), paths[-1])
+    one = pr.analyze_library(paths, runner=pr.Runner(dev), album=True, max_batch=2)
+    runners = [pr.Runner(dev), pr.Runner(dev)]
+    ek.COUNT.reset()
+    hk.COUNT.reset()
+    two = pr.analyze_library(paths, runners=runners, album=True, max_batch=2)
+    batches = [len(r.timings) for r in runners]
+    assert min(batches) >= 1 and sum(batches) == 6
+    assert (ek.COUNT.kernel, hk.COUNT.kernel, ek.COUNT.plain, hk.COUNT.plain) == (6, 6, 0, 0)
+    for a, b in zip(two.tracks, one.tracks):
+        assert a.ok and a.result == b.result and np.array_equal(a.histogram, b.histogram)
+    assert np.array_equal(two.album_histogram, one.album_histogram)
+    assert np.array_equal(two.album_histogram,
+                          np.sum([t.histogram for t in two.tracks], axis=0))
+
+    group = pr.RunnerGroup(runners=runners)
+    ups = [fe.unpack_data_light_packed(_clip(smoke.TRANSIENT_TRACK)) for _ in range(4)]
+    single = runners[0].analyze_unpacked_light(ups, 44100, 2)
+    sharded = group.collect(group.dispatch_light_sharded(ups, 44100, 2))
+    for a, b in zip(single, sharded):
+        assert np.array_equal(a, b)
+    total, top = group.album_reduce_device(single[0], single[2])
+    assert np.array_equal(total, single[0].sum(axis=0, dtype=np.int64))
+    assert top == float(single[2].max())
+
+
+def test_dryruns_on_the_card(dev, capfd):
+    from mp3rgain_tpu_torch.parallel import dryrun
+
+    cc.COUNT.reset()
+    dryrun.dryrun_multichip(2)
+    assert cc.COUNT.kernel == 3 and cc.COUNT.plain == 0
+    dryrun.dryrun_multihost(2, timeout_s=300)
+    assert capfd.readouterr().out.count("album union bit-equal over gloo") == 2

@@ -6,14 +6,16 @@ built by native.py), the MP3 front-end (decode/frontend.py), the AAC front-end
 (_native/aacdec.cpp, decode/aac_frontend.py, its tables and crafted
 streams, the libavcodec encoder of the committed clips), the table
 builders and filter coefficients, the buffer pool, the result types, the
-crafted streams, the libmp3lame encoder and the CLI's host modules (ape,
-id3v2, bitstream, mp4meta, utils). Every copy is held here to its
+crafted streams, the libmp3lame encoder, the CLI's host modules (ape,
+id3v2, bitstream, mp4meta, utils) and the GUI. Every copy is held here to its
 original: the Python copies by their code (docstrings and comments aside)
 and by their outputs, the C++ copies by their code lines and by the
 outputs of the functions over them, on the committed clips and the
 crafted streams.
 
-Four copies must differ, and are held by the rest of their code and by
+gui.py differs from its original in the device its AppState carries and
+passes on and in the two strings that name the platform, and in nothing
+else. Four more copies must differ, and are held by the rest of their code and by
 their outputs: bitstream.find_max_amplitude (the decoded peak runs on a
 device the caller names, and a missing card raises instead of falling
 back to an estimate), mp4meta (its ctypes declarations live in
@@ -163,6 +165,34 @@ def test_python_copy_differs_only_where_it_must(rel, differs):
     mine, theirs = os.path.join(PORT_PKG, rel), os.path.join(JAX_PKG, rel)
     assert body(mine) == body(theirs)
     assert set(_defs(mine)) == set(_defs(theirs))
+
+
+GUI_DIFFERENCES = [  # (the port's text, the original's, occurrences)
+    ('    device: str = "cuda"  # where the analysis runs\n', "", 1),
+    ("replaygain.analyze_track(entry.path, device=self.device)",
+     "replaygain.analyze_track(entry.path)", 1),
+    ("replaygain.analyze_album(paths, device=self.device)",
+     "replaygain.analyze_album(paths)", 1),
+    ("scan_files(paths, progress_cb=_on_file, device=self.device)",
+     "scan_files(paths, progress_cb=_on_file)", 1),
+    ('def main(argv=None, *, device: str = "cuda") -> int:', "def main(argv=None) -> int:", 1),
+    ("state = AppState(device=device)", "state = AppState()", 1),
+    ("mp3rgui (CUDA)", "mp3rgui (TPU)", 2),
+    ("ReplayGain analysis on PyTorch", "ReplayGain analysis on JAX", 1),
+]
+
+
+def test_gui_copy_differs_only_in_the_device_and_the_platform_name(tmp_path):
+    """gui.py with its eight differences taken back is the original's
+    code: AppState.device, its three uses, main's argument, and the
+    title and About strings."""
+    text = open(os.path.join(PORT_PKG, "gui.py")).read()
+    for mine, theirs, n in GUI_DIFFERENCES:
+        assert text.count(mine) == n, mine
+        text = text.replace(mine, theirs)
+    back = tmp_path / "gui.py"
+    back.write_text(text)
+    assert _code(str(back)) == _code(os.path.join(JAX_PKG, "gui.py"))
 
 
 def test_native_wrappers_are_the_original_functions():

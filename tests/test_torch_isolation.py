@@ -53,7 +53,8 @@ def test_scan_covers_the_port():
                  "bitstream.py", "ape.py", "id3v2.py", "mp4meta.py", "aac.py",
                  "decode/aac_frontend.py", "decode/aac_prep.py",
                  "decode/aac_synthesis.py", "decode/aac_format_tables.py",
-                 "testing/craft_aac.py", "testing/make_smoke_data.py"):
+                 "testing/craft_aac.py", "testing/make_smoke_data.py", "gui.py",
+                 "parallel/multihost.py", "parallel/dryrun.py"):
         assert os.path.join(PORT, must) in files, must
 
 
@@ -103,8 +104,33 @@ print(json.dumps({{
     assert f"{PORT}.decode.frontend" in got["modules"]
     assert f"{PORT}.tools.hk_dotprobe" in got["modules"]
     for name in ("aac", "decode.aac_frontend", "decode.aac_prep", "decode.aac_synthesis",
-                 "testing.craft_aac"):
+                 "testing.craft_aac", "gui", "parallel.multihost", "parallel.dryrun"):
         assert f"{PORT}.{name}" in got["modules"], name
-    assert len(got["modules"]) >= 31
+    assert len(got["modules"]) >= 34
     assert got["loaded"] == []
     assert not got["host_library_loaded"] and not got["kernel_library_loaded"]
+
+
+def test_fresh_interpreter_importing_multihost_loads_no_torch():
+    """parallel.multihost answers is_multihost() and process_slice() from
+    the environment without torch: byte surgery under a coordinator stays
+    cheap."""
+    prog = f"""
+import json, os, sys
+sys.path.insert(0, {ROOT!r})
+os.environ.update(MP3RGAIN_COORDINATOR="localhost:1", MP3RGAIN_NUM_PROCESSES="3",
+                  MP3RGAIN_PROCESS_ID="2")
+from {PORT}.parallel import multihost
+print(json.dumps({{
+    "multihost": multihost.maybe_initialize_from_env(),
+    "slice": multihost.process_slice(list(range(7))),
+    "loaded": sorted(k for k in sys.modules
+                     if k.split(".")[0] in ("torch", *{FORBIDDEN!r})),
+}}))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", prog], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got == {"multihost": True, "slice": [2, 5], "loaded": []}

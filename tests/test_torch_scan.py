@@ -99,7 +99,7 @@ def test_second_run_resumes_every_track(library, tmp_path):
     runner = pr.Runner("cpu")
     again = scan.scan_files(library, manifest_path=manifest, runner=runner)
     assert again.resumed == len(library)
-    assert runner.timings == []  # no batch ran
+    assert len(runner.timings) == 0  # no batch ran
     _assert_identical(again, first, library)
 
 
@@ -179,8 +179,22 @@ def test_album_union_matches_jax(library, port_scan, jax_scan):
 
 
 def test_album_union_refuses_a_multi_host_group(port_scan, library, monkeypatch):
+    """In a group whose coordinator cannot be reached album_union raises
+    with the coordinator's address inside the time limit: it never
+    answers with the process-local album. A coordinator alone names no
+    group, and the union is the local one."""
+    from mp3rgain_tpu_torch.parallel import multihost
+
+    local = scan.album_union(port_scan, library)
+    monkeypatch.setattr(multihost, "_config", None)
     monkeypatch.setenv("MP3RGAIN_COORDINATOR", "localhost:1")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    assert not multihost.is_multihost()
+    assert scan.album_union(port_scan, library) == local
+    monkeypatch.setenv("MP3RGAIN_NUM_PROCESSES", "2")
+    monkeypatch.setenv("MP3RGAIN_PROCESS_ID", "1")
+    monkeypatch.setenv("MP3RGAIN_GROUP_TIMEOUT_S", "2")
+    assert multihost.is_multihost()
+    with pytest.raises(RuntimeError, match="could not join its group at localhost:1"):
         scan.album_union(port_scan, library)
 
 
@@ -271,7 +285,7 @@ def test_mixed_manifest_resumes_across_the_packages(mixed_library, tmp_path, wri
         first = jscan.scan_files(mixed_library, manifest_path=manifest)
         runner = pr.Runner("cpu")
         second = scan.scan_files(mixed_library, manifest_path=manifest, runner=runner)
-        assert runner.timings == []  # no batch ran
+        assert len(runner.timings) == 0  # no batch ran
     else:
         first = scan.scan_files(mixed_library, manifest_path=manifest, device="cpu")
         second = jscan.scan_files(mixed_library, manifest_path=manifest)

@@ -176,7 +176,7 @@ def test_runner_matches_jax(batches, name):
         _assert_close_to_jax(hist, idx, peaks, jax_out[fused], bsz)
     t = runner.last_timings
     assert set(t) == {"route", "prep_s", "h2d_s", "device_ms"} and t["route"] == "light"
-    assert runner.timings == [t]
+    assert list(runner.timings) == [t]
     assert all(t[k] >= 0 for k in ("prep_s", "h2d_s", "device_ms"))
     # The Runner reuses one LightTail per format.
     assert runner.tail(sr, nch) is runner.tail(sr, nch)
