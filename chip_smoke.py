@@ -11,7 +11,13 @@ straight into the row its consumer reads), the requantize + stereo pass
 K2 (csrc/requant_stereo.cu) and the split-bf16 class-core GEMM K3
 (csrc/class_core_gemm.cu). Holds each against its plain PyTorch version
 on the card and times it beside its bound (and K3 beside one cuBLAS call
-computing the same product, which the port never calls), then runs the
+computing the same product, which the port never calls), then sends
+hostile input through them (seeded byte flips, truncations and splices of
+the committed clips and crafted streams, and an AAC stream whose noise
+energies overflow float32: K1, K2 and K3 against their plain versions on
+the mutated batches, the light, host-decoded and AAC routes against the
+CPU, scan_files with the mutated files among the library's), so that every
+later phase runs after them in the same process; then runs the
 port's two routes over 64 copies of a 60 s, 44.1 kHz joint-stereo
 192 kbps track, the JAX package's bench batch: the light main path
 (Runner.analyze_unpacked_light, K1 + K2) and the host-decoded route
@@ -47,7 +53,8 @@ Output, one phase per line:
 
   device / nvidia-smi name and power limit / build seconds and K1/K2/K3
   registers, shared memory and spills / K1, K2 and K3 agreement, times
-  and bounds / light slice launch counts, CPU agreement / light stage
+  and bounds / hostile input: MP3 raw-bits, MP3 host-decoded, AAC q
+  route, scan / light slice launch counts, CPU agreement / light stage
   split / heavy slice launch counts, CPU and light agreement, light
   unfused == heavy / decode_file / entry-point gains / AAC clips, slice,
   routes, stages and entry points / library scan / per-track CLI walls /
@@ -126,6 +133,36 @@ def _union_ms(intervals) -> float:
     return total
 
 
+def _library_files(root, clips, aac_clips):
+    """The library phase's 706 files in `root`: symlinks to the committed
+    clips (LIBRARY_COPIES, then AAC_LIBRARY_COPIES), a file of seeded
+    random bytes and a zero-payload ADTS file. Returns (every path, the
+    MP3-side paths, the random bytes' path, the ADTS file's path)."""
+    import numpy as np
+
+    bench_path, mono_path, transient_path = clips
+    paths = []
+    for kind, src in (("bench", bench_path), ("transient", transient_path),
+                      ("mono", mono_path)):
+        for i in range(LIBRARY_COPIES[kind]):
+            paths.append(os.path.join(root, f"{kind}_{i:03d}.mp3"))
+            os.symlink(src, paths[-1])
+    noise = os.path.join(root, "noise.mp3")
+    with open(noise, "wb") as f:
+        f.write(np.random.default_rng(LIBRARY_SEED).integers(
+            0, 256, 1 << 16, dtype=np.uint8).tobytes())
+    adts = os.path.join(root, "stream.aac")
+    with open(adts, "wb") as f:
+        f.write(_adts_stream())
+    paths += [noise, adts]
+    mp3_paths = list(paths)
+    for kind, src in zip(AAC_LIBRARY_COPIES, aac_clips):
+        for i in range(AAC_LIBRARY_COPIES[kind]):
+            paths.append(os.path.join(root, f"{kind}_{i:03d}.m4a"))
+            os.symlink(src, paths[-1])
+    return paths, mp3_paths, noise, adts
+
+
 def library_phase(dev, card, bench_u, bench_loud, bench_peak, bench_windows, clips,
                   aac_clips):
     """scan_files over a 706-file library on the card (384 copies of the
@@ -155,26 +192,9 @@ def library_phase(dev, card, bench_u, bench_loud, bench_peak, bench_windows, cli
     bench_path, mono_path, transient_path = clips
     root = tempfile.mkdtemp(prefix="mp3rgain-library-")
     try:
-        paths = []
-        for kind, src in (("bench", bench_path), ("transient", transient_path),
-                          ("mono", mono_path)):
-            for i in range(LIBRARY_COPIES[kind]):
-                paths.append(os.path.join(root, f"{kind}_{i:03d}.mp3"))
-                os.symlink(src, paths[-1])
-        noise = os.path.join(root, "noise.mp3")
-        with open(noise, "wb") as f:
-            f.write(np.random.default_rng(LIBRARY_SEED).integers(
-                0, 256, 1 << 16, dtype=np.uint8).tobytes())
-        adts = os.path.join(root, "stream.aac")
-        with open(adts, "wb") as f:
-            f.write(_adts_stream())
-        paths += [noise, adts]
-        mp3_paths = list(paths)
+        paths, mp3_paths, noise, adts = _library_files(root, clips, aac_clips)
         aac_seconds = 3 * 1024 / 44100  # the ADTS file's three silent frames
         for kind, src in zip(AAC_LIBRARY_COPIES, aac_clips):
-            for i in range(AAC_LIBRARY_COPIES[kind]):
-                paths.append(os.path.join(root, f"{kind}_{i:03d}.m4a"))
-                os.symlink(src, paths[-1])
             aac_seconds += AAC_LIBRARY_COPIES[kind] * aac.audio_seconds(af.unpack_file_q(src))
         manifest = os.path.join(root, "scan.json")
 
@@ -365,6 +385,350 @@ def library_phase(dev, card, bench_u, bench_loud, bench_peak, bench_windows, cli
               f"{max((os.cpu_count() or 1) - n, 1)}) {', '.join(f'{t:.3f}' for t in ts)} s"
               for n, ts in turns.items()), flush=True)
     return {"launches": launches}
+
+
+HOSTILE_SEED = 8
+# Mutations per seed: the 60 s bench clips take longest on the CPU side.
+HOSTILE_PER_SEED = {"bench": 1, "other": 3}
+
+
+def _same_outcome(a, b) -> bool:
+    """Two scan outcomes agree: exceptions of one class name and message,
+    or results with equal loudness, gain, rate and type and peaks within
+    rtol 2e-4 (NaN where the other is NaN)."""
+    import math
+
+    if isinstance(a, Exception) or isinstance(b, Exception):
+        return (type(a).__name__, str(a)) == (type(b).__name__, str(b))
+    same_peak = (math.isnan(a.peak) and math.isnan(b.peak)) or math.isclose(
+        a.peak, b.peak, rel_tol=2e-4, abs_tol=1e-6)
+    return same_peak and (a.loudness_db, a.gain_db, a.sample_rate, a.file_type) == (
+        b.loudness_db, b.gain_db, b.sample_rate, b.file_type)
+
+
+def _peak_rel(a, b) -> float:
+    """Largest relative difference of two peak arrays; NaN against NaN
+    counts as 0 and NaN against a number as inf."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    nan_a, nan_b = np.isnan(a), np.isnan(b)
+    if (nan_a != nan_b).any():
+        return float("inf")
+    ok = ~nan_a
+    if not ok.any():
+        return 0.0
+    return float((np.abs(a[ok] - b[ok]) / np.maximum(np.abs(b[ok]), 1e-6)).max())
+
+
+def hostile_phase(dev, card, luts, clips):
+    """Hostile input on the card, right after the kernel checks, so that
+    every later phase runs in a process whose kernels have decoded
+    mutated streams (a fault in a kernel would have ended the CUDA
+    context). Seeded byte flips, truncations and splices
+    (testing/hostile.mutations) of the committed clips and the crafted
+    streams, and the PNS-overflow ADTS stream:
+
+    1. MP3 raw-bits: K1 exactly its plain version (rows, big_end,
+       count1_end, input-order and channel-major rows) and the host
+       decoder on valid granules; K2 within K2_RTOL / K2_ATOL_REL with its
+       non-finite values where the plain version has them; the light
+       route on the card against the port's CPU run (window counts and
+       loudness exactly, peak rtol 2e-4).
+    2. MP3 host-decoded: K3 as the route calls it against its plain
+       version within K3_RTOL / K3_ATOL_REL; the route against the CPU.
+    3. AAC: mutated M4A and ADTS streams and the PNS-overflow stream on
+       the q route against the CPU; the overflow stream reads 0.00 dB from
+       58 windows in bin 2000 with a NaN peak.
+    4. scan_files over the library phase's 706 files with the mutated
+       files among them: every library file exactly as in a scan without
+       them; the mutated files scanned alone on the card exactly as on the
+       CPU (the q route on both), and among the library files as alone
+       (an AAC file's loudness may move with its batch row's PNS noise)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mp3rgain_tpu_torch import aac, scan
+    from mp3rgain_tpu_torch.decode import aac_frontend as af
+    from mp3rgain_tpu_torch.decode import class_core as cc
+    from mp3rgain_tpu_torch.decode import entropy_kernel as ek
+    from mp3rgain_tpu_torch.decode import frontend as fe
+    from mp3rgain_tpu_torch.decode import hybrid_kernel as hk
+    from mp3rgain_tpu_torch.decode import synthesis as syn
+    from mp3rgain_tpu_torch.parallel import runner as pr
+    from mp3rgain_tpu_torch.testing import craft, craft_aac, hostile
+    from mp3rgain_tpu_torch.testing import make_smoke_data as smoke
+
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(HOSTILE_SEED)
+    aac_clips = [os.path.join(smoke.DATA_DIR, n)
+                 for n in (smoke.AAC_BENCH_TRACK, smoke.AAC_TRANSIENT_TRACK)]
+
+    def read(name):
+        with open(os.path.join(smoke.DATA_DIR, name), "rb") as f:
+            return f.read()
+
+    def mutate(seeds):
+        return {f"{k}_{i}": m for k, data in seeds.items()
+                for i, m in enumerate(hostile.mutations(
+                    data, rng, HOSTILE_PER_SEED["bench" if "bench" in k else "other"]))}
+
+    def to_dev(arrs):
+        return [pr._to_device(a, dev) for a in arrs]
+
+    runner = pr.Runner(dev)
+    cpu = pr.Runner("cpu")
+
+    # --- 1 and 2: MP3 ------------------------------------------------------------
+    mp3 = mutate({
+        "bench": read(smoke.BENCH_TRACK), "transient": read(smoke.TRANSIENT_TRACK),
+        "mono": read(smoke.MONO_TRACK),
+        "craft_intensity": craft.craft_intensity_stream(),
+        "craft_lsf_intensity": craft.craft_lsf_intensity_stream(),
+        "craft_mixed_block": craft.craft_mixed_block_stream(),
+        "craft_count1b": craft.craft_count1b_stream(),
+        "craft_scalefactor": craft.craft_scalefactor_stream(
+            scf=[3, 2, 1, 4, 5, 6, 7, 0, 1, 2, 3] + [1, 2, 3, 0, 1, 2, 3, 0, 1, 2],
+            preflag=1, scfsi=0b1010),
+    })
+    groups: dict[tuple, list] = {}
+    mp3_host_fail = []
+    for name, data in mp3.items():
+        u = fe.unpack_data_light_packed(data)
+        if u.n == 0:
+            mp3_host_fail.append(name)
+        else:
+            groups.setdefault((u.sample_rate, u.n_channels), []).append(name)
+    worst = {"k2_rel": 0.0, "k2_nonfinite": 0, "k3_rel": 0.0, "light_peak": 0.0,
+             "heavy_peak": 0.0, "valid_rows": 0}
+    k3_calls = 0
+
+    def same_rows(got, want):
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              "K1 on mutated streams: rows, big_end and count1_end equal the plain version")
+
+    def close_with_nonfinite(got, want, rtol, atol_rel, what):
+        """got within rtol and atol_rel * max|want| of want where want is
+        finite; the same non-finite values where it is not."""
+        fin = torch.isfinite(want)
+        check(torch.equal(torch.isfinite(got), fin), f"{what}: non-finite in the same places")
+        nf = ~fin
+        check(torch.equal(torch.isnan(got[nf]), torch.isnan(want[nf]))
+              and bool((got[nf] == want[nf])[~torch.isnan(want[nf])].all()),
+              f"{what}: the same non-finite values")
+        scale = want[fin].abs().max().item() if bool(fin.any()) else 0.0
+        err = (got[fin] - want[fin]).abs().max().item() if bool(fin.any()) else 0.0
+        check(torch.allclose(got[fin], want[fin], rtol=rtol, atol=atol_rel * scale),
+              f"{what} within rtol {rtol}, atol {atol_rel}*max|plain| ({err:.3e} of {scale:.3e})")
+        return err / scale if scale else 0.0, int(nf.sum())
+
+    for (sr, nch), names in sorted(groups.items()):
+        ups = [fe.unpack_data_light_packed(mp3[n]) for n in names]
+        prep, rest, g_max = pr.prepare_batch_arrays_light(ups, nch)
+        batch = to_dev((prep.scalars, prep.buf, prep.meta, prep.inv) + tuple(rest))
+        args = (*batch[:3], luts, ek.input_order_dest(batch[3], prep.n), prep.n)
+        rows = ek.decode_rows(*args)
+        same_rows(rows, ek.decode_rows_reference(*args))
+        spec, big_end, c1end = (t.cpu().numpy() for t in rows)
+        off = 0
+        for n, u in zip(names, ups):
+            full = fe.unpack_data(mp3[n])
+            valid = full.info[:, fe.VALID] == 1
+            sl = slice(off, off + u.n)
+            check(np.array_equal(spec[sl][valid], full.spectrum[valid])
+                  and np.array_equal(big_end[sl][valid], full.info[valid, fe.BIG_END])
+                  and np.array_equal(c1end[sl][valid], full.info[valid, fe.COUNT1_END]),
+                  f"K1 on {n}: valid granules equal the host decoder")
+            worst["valid_rows"] += int(valid.sum())
+            off += u.n
+        dest, n_rows = pr.dest_rows(batch[3], batch[4], g_max=g_max, n_channels=nch,
+                                    channel_major=True)
+        rows_cm = ek.decode_rows(*batch[:3], luts, dest, n_rows)
+        same_rows(rows_cm, ek.decode_rows_reference(*batch[:3], luts, dest, n_rows))
+        tail = runner.tail(sr, nch)
+        cm = pr.channel_major_inputs(*rows_cm, *batch[4:11], nb=prep.nb, g_max=g_max,
+                                     n_channels=nch)
+        rel, nonfin = close_with_nonfinite(
+            hk.fused_requant_stereo(*cm, tail.hybrid),
+            hk.fused_requant_stereo_reference(*cm, tail.hybrid), K2_RTOL, K2_ATOL_REL,
+            f"K2 on the {sr} Hz x {nch} mutated batch")
+        worst["k2_rel"] = max(worst["k2_rel"], rel)
+        worst["k2_nonfinite"] += nonfin
+        del batch, rows, rows_cm, cm
+
+        # The light route against the CPU run.
+        hist, louds, peaks = runner.analyze_unpacked_light(ups, sr, nch)
+        c_hist, c_louds, c_peaks = cpu.analyze_unpacked_light(ups, sr, nch)
+        check(np.array_equal(hist.sum(axis=1), c_hist.sum(axis=1))
+              and np.array_equal(louds, c_louds)
+              and _peak_rel(peaks, c_peaks) <= 2e-4,
+              f"light route on the {sr} Hz x {nch} mutated batch against the CPU: "
+              f"{louds} vs {c_louds}, {peaks} vs {c_peaks}")
+        worst["light_peak"] = max(worst["light_peak"], _peak_rel(peaks, c_peaks))
+
+        # The host-decoded route: K3 held to its plain version on the
+        # operands the route gives it, as it calls it (the route reuses
+        # its buffers afterwards), then the route against the CPU.
+        fulls = [fe.unpack_data(mp3[n]) for n in names]
+        calls = []
+        real = syn.class_core_gemm
+
+        def spy(x, chi, clo, *, row_core=None):
+            out = real(x, chi, clo, row_core=row_core)
+            calls.append(close_with_nonfinite(
+                out, cc.class_core_gemm_reference(x, chi, clo, row_core=row_core),
+                K3_RTOL, K3_ATOL_REL, f"K3 on the {sr} Hz x {nch} mutated batch")[0])
+            return out
+
+        syn.class_core_gemm = spy
+        try:
+            hist, louds, peaks = runner.analyze_unpacked(fulls, sr, nch)
+        finally:
+            syn.class_core_gemm = real
+        check(len(calls) > 0, "the host-decoded route called K3")
+        worst["k3_rel"] = max([worst["k3_rel"], *calls])
+        k3_calls += len(calls)
+        c_hist, c_louds, c_peaks = cpu.analyze_unpacked(fulls, sr, nch)
+        check(np.array_equal(hist.sum(axis=1), c_hist.sum(axis=1))
+              and np.array_equal(louds, c_louds) and _peak_rel(peaks, c_peaks) <= 2e-4,
+              f"host-decoded route on the {sr} Hz x {nch} mutated batch against the CPU: "
+              f"{louds} vs {c_louds}, {peaks} vs {c_peaks}")
+        worst["heavy_peak"] = max(worst["heavy_peak"], _peak_rel(peaks, c_peaks))
+    n_dev = sum(len(v) for v in groups.values())
+    torch.cuda.empty_cache()
+    print(f"hostile mp3 raw-bits {card}: {len(mp3)} files mutated (seed {HOSTILE_SEED}; "
+          f"3 clips, 5 crafted streams), {n_dev} reached the device in "
+          f"{len(groups)} (rate, channels) batches, {len(mp3_host_fail)} failed on the host "
+          f"(no frame kept); K1 exactly its plain version and the host decoder on "
+          f"{worst['valid_rows']} valid granules; K2 max rel err {worst['k2_rel']:.2e} "
+          f"(rtol {K2_RTOL}), {worst['k2_nonfinite']} non-finite values in the plain "
+          f"version's places; light route vs CPU: windows and loudness equal, max peak "
+          f"rel diff {worst['light_peak']:.2e}", flush=True)
+    print(f"hostile mp3 host-decoded {card}: the same {n_dev} files, {k3_calls} K3 calls "
+          f"held to the plain version, max rel err {worst['k3_rel']:.2e} (rtol {K3_RTOL}); "
+          f"route vs CPU: windows and loudness equal, max peak rel diff "
+          f"{worst['heavy_peak']:.2e}", flush=True)
+
+    # --- 3: AAC ----------------------------------------------------------------------
+    m4a = mutate({"m4a_bench": read(smoke.AAC_BENCH_TRACK),
+                  "m4a_transient": read(smoke.AAC_TRANSIENT_TRACK),
+                  "m4a_pns": read(smoke.AAC_PNS_TRACK),
+                  "m4a_two_tracks": read(smoke.AAC_TWO_TRACKS)})
+    adts = mutate({
+        "adts_mono": read(smoke.AAC_ADTS_TRACK),
+        "craft_sce": craft_aac.craft_sce_stream(
+            8, n_bands=45, energy={40: (1, -1, 1, 0)}, pulses=[(0, 4)],
+            tns=dict(length=45, order=3, coefs=[5, 2, 7]), global_gain=150),
+        "craft_cpe": craft_aac.craft_cpe_stream(
+            8, n_bands=10, left_energy={b: (1, 0, -1, 0) for b in range(10)},
+            is_bands={7: (15, 2), 8: (14, -1), 9: (15, 4)}, ms_used={0, 7},
+            global_gain=150)})
+    adts["pns_overflow"] = hostile.pns_overflow_stream()
+    aac_groups: dict[tuple, list] = {}
+    aac_host_fail = {}
+    unpacked = {}
+    for name, data in {**m4a, **adts}.items():
+        try:  # the host front-end alone: a demux or decode error fails the file
+            u = af.unpack_adts_q(af.mp4_to_adts(data) if name.startswith("m4a") else data)
+        except Exception as e:  # noqa: BLE001 - recorded per file, as the scan does
+            aac_host_fail[name] = type(e).__name__
+            continue
+        if u.n == 0:
+            aac_host_fail[name] = "no frame"
+            continue
+        unpacked[name] = u
+        aac_groups.setdefault((u.sample_rate, u.n_channels), []).append(name)
+    aac_peak = 0.0
+    for (sr, nch), names in sorted(aac_groups.items()):
+        ups = [unpacked[n] for n in names]
+        hist, louds, peaks = aac.analyze_batch_q(ups, sr, nch, runner=runner)
+        c_hist, c_louds, c_peaks = aac.analyze_batch_q(ups, sr, nch, runner=cpu)
+        check(np.array_equal(hist.sum(axis=1), c_hist.sum(axis=1))
+              and np.array_equal(louds, c_louds) and _peak_rel(peaks, c_peaks) <= 2e-4,
+              f"AAC q route on the {sr} Hz x {nch} mutated batch against the CPU: "
+              f"{louds} vs {c_louds}, {peaks} vs {c_peaks}")
+        aac_peak = max(aac_peak, _peak_rel(peaks, c_peaks))
+        if "pns_overflow" in names:
+            i = names.index("pns_overflow")
+            check(louds[i] == 0.0 and int(hist[i].sum()) == int(hist[i, 2000]) == 58
+                  and np.isnan(peaks[i]),
+                  f"the PNS-overflow stream reads 0.00 dB from 58 windows in bin 2000, "
+                  f"peak NaN: {louds[i]}, {int(hist[i].sum())}, {int(hist[i, 2000])}, "
+                  f"{peaks[i]}")
+    n_aac_dev = sum(len(v) for v in aac_groups.values())
+    # What the histogram's explicit bin index replaced: torch's own
+    # float -> int32 cast of NaN, inf and -inf, here and on the CPU.
+    raw = torch.tensor([float("nan"), float("inf"), float("-inf")])
+    cast = [raw.to(d).to(torch.int32).cpu().tolist() for d in (dev, "cpu")]
+    print(f"hostile aac q route {card}: {len(m4a) + len(adts) - 1} files mutated (4 M4A "
+          f"clips, 1 ADTS clip, 2 crafted streams) and the PNS-overflow stream, {n_aac_dev} "
+          f"reached the device in {len(aac_groups)} batches, {len(aac_host_fail)} failed on "
+          f"the host ({', '.join(sorted(set(aac_host_fail.values())))}); against the CPU: "
+          f"windows and loudness equal, max peak rel diff {aac_peak:.2e}; the PNS-overflow "
+          f"stream: 0.00 dB, 58 windows in bin 2000, peak NaN; torch's own float->int32 "
+          f"cast of [nan, inf, -inf] (no longer used by the histogram): {cast[0]} on {dev}, "
+          f"{cast[1]} on the CPU", flush=True)
+
+    # --- 4: the library scan with the mutated files among the clean ones ------------
+    root = tempfile.mkdtemp(prefix="mp3rgain-hostile-")
+    try:
+        clean_paths, _, _, _ = _library_files(root, clips, aac_clips)
+        hostile_paths = []
+        for name, data in {**mp3, **m4a, **adts}.items():
+            ext = ".mp3" if name in mp3 else ".m4a" if name in m4a else ".aac"
+            hostile_paths.append(os.path.join(root, f"hostile_{name}{ext}"))
+            with open(hostile_paths[-1], "wb") as f:
+                f.write(data)
+        lib = pr.Runner(dev)
+        t0 = time.perf_counter()
+        clean = scan.scan_files(clean_paths, runner=lib, device_prep=True)
+        clean_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mixed = scan.scan_files(clean_paths + hostile_paths, runner=lib, device_prep=True)
+        mixed_s = time.perf_counter() - t0
+        # The mutated files alone, on the card and on the CPU: the same
+        # batches on both. Every scan here takes the AAC q route, the
+        # card's default, named so that the CPU takes it too.
+        alone = scan.scan_files(hostile_paths, runner=lib, device_prep=True)
+        on_cpu = scan.scan_files(hostile_paths, runner=cpu, device_prep=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for p in clean_paths:
+        a, b = mixed.results[p], clean.results[p]
+        same = ((type(a).__name__, str(a)) == (type(b).__name__, str(b))
+                if isinstance(a, Exception) or isinstance(b, Exception) else a == b)
+        check(same and np.array_equal(mixed.histograms.get(p), clean.histograms.get(p)),
+              f"{p} in the scan with the mutated files equals the clean scan: {a} vs {b}")
+    failed = [p for p in hostile_paths if isinstance(mixed.results[p], Exception)]
+    moved = []  # AAC files whose PNS noise moved with their batch row
+    for p in hostile_paths:
+        check(_same_outcome(alone.results[p], on_cpu.results[p]),
+              f"{p} on the card as on the CPU: {alone.results[p]} vs {on_cpu.results[p]}")
+        a, b = mixed.results[p], alone.results[p]
+        if p.endswith(".mp3") or isinstance(a, Exception) or isinstance(b, Exception):
+            check(_same_outcome(a, b), f"{p} among the library files as alone: {a} vs {b}")
+        else:
+            # The q route keys its PNS noise by the row in the batch (the
+            # JAX package's _noise_uniform), so an AAC track's noise, and
+            # on a stream of overflowing noise energies its loudness,
+            # depends on the batch it lands in.
+            check((a.sample_rate, a.file_type) == (b.sample_rate, b.file_type),
+                  f"{p} among the library files as alone: {a} vs {b}")
+            if a.loudness_db != b.loudness_db:
+                moved.append(abs(a.loudness_db - b.loudness_db))
+    print(f"hostile scan {card}: scan_files over the library phase's {len(clean_paths)} "
+          f"files, clean {clean_s:.3f} s, with {len(hostile_paths)} mutated files among them "
+          f"{mixed_s:.3f} s; every library file's result and histogram exactly as in the "
+          f"clean scan; {len(failed)} mutated files failed and "
+          f"{len(hostile_paths) - len(failed)} were analysed; the mutated files scanned "
+          f"alone on the card equal their CPU scan (q route); among the library files each "
+          f"MP3 and each failure as alone, {len(moved)} AAC files with another loudness "
+          f"from their batch row's PNS noise (max {max(moved, default=0.0):.2f} dB); "
+          f"hostile phase {time.perf_counter() - t_start:.1f} s", flush=True)
 
 
 AAC_STAGES = ["nibble unpack + escapes", "requantize", "PNS", "stereo", "fallback merge",
@@ -1290,6 +1654,11 @@ def main() -> None:
           f"bound {k3h_bound[0]:.3f} ms "
           f"({k3h_bound[1]}; {k3h_bound[0] / k3_ms:.1%} of it) {card}", flush=True)
     del x, chi, clo, row_core
+    torch.cuda.empty_cache()
+
+    # --- 6b. hostile input through K1, K2, K3 and the AAC route ----------------
+    # Every later phase runs in this process after it.
+    hostile_phase(dev, card, luts, clips)
     torch.cuda.empty_cache()
 
     # --- 7. the light main path at full size -----------------------------------

@@ -37,6 +37,21 @@ def window_size(sample_rate: int) -> int:
     return (sample_rate * RMS_WINDOW_MS) // 1000
 
 
+def bin_index(val: torch.Tensor) -> torch.Tensor:
+    """int32 bin index of each window's 100 * 10 * log10(ms): XLA's
+    float -> int32 convert (truncation toward zero, NaN -> 0, saturating at
+    the int32 range) then the int32 add of HISTOGRAM_OFFSET with its wrap,
+    as the JAX package computes it. Written out in tensor ops because
+    torch's .to(torch.int32) of NaN or of an out-of-range value depends on
+    the device (INT_MIN on an x86 CPU, 0 for NaN on the card): a window
+    whose mean square is NaN lands in bin 2000 on every device."""
+    lim = 2.0 ** 31
+    v = torch.where(torch.isnan(val), torch.zeros_like(val), val)
+    v = v.clamp(-lim, lim).to(torch.int64).clamp(-(1 << 31), (1 << 31) - 1)
+    wrapped = (v + HISTOGRAM_OFFSET + (1 << 31)) % (1 << 32) - (1 << 31)
+    return wrapped.to(torch.int32)
+
+
 def histogram(filtered: torch.Tensor, valid_len: torch.Tensor,
               win: int) -> torch.Tensor:
     """filtered: (B, C, T) equal-loudness output; valid_len: (B,) valid
@@ -56,7 +71,7 @@ def histogram(filtered: torch.Tensor, valid_len: torch.Tensor,
 
     ms = sums / torch.clamp(totsamp, min=1.0) * 0.5
     val = STEPS_PER_DB * 10.0 * torch.log10(ms + 1e-37)
-    bin_idx = val.to(torch.int32) + HISTOGRAM_OFFSET  # trunc toward zero
+    bin_idx = bin_index(val)
     ok = (totsamp > 0) & (bin_idx >= 0) & (bin_idx < HISTOGRAM_SIZE)
 
     track = torch.arange(b, device=f.device).view(b, 1)

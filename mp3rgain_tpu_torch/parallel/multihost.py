@@ -194,14 +194,19 @@ def album_union_global(local_hist: np.ndarray, local_peak: float):
     process's tracks (0 for an empty slice). Returns (hist (12000,)
     np.uint64, peak float), identical on every process: one all_reduce
     (SUM) of the int64 histogram and one all_reduce(MAX) of the float64
-    peak, over host tensors."""
+    peak, over host tensors. A NaN peak loses to any other process's peak
+    (NaN only when every process's is), as under the JAX package's pmax;
+    gloo's MAX would keep or drop it by operand order, so it enters the
+    all-reduce as -inf."""
     import torch
 
     hist = torch.from_numpy(np.ascontiguousarray(local_hist).astype(np.int64))
-    peak = torch.tensor([float(local_peak)], dtype=torch.float64)
+    peak = torch.tensor([-np.inf if np.isnan(local_peak) else float(local_peak)],
+                        dtype=torch.float64)
     _all_reduce(hist, "SUM")
     _all_reduce(peak, "MAX")
-    return hist.numpy().astype(np.uint64), float(peak[0])
+    top = float(peak[0])
+    return hist.numpy().astype(np.uint64), float("nan") if top == -np.inf else top
 
 
 def any_failed_global(failed: bool) -> bool:

@@ -1027,7 +1027,10 @@ class RunnerGroup:
         (B,) peaks: each device sums its contiguous share of the rows in
         int64 and takes its share's peak, the partial results go to the
         first device and are added there. Returns (hist (12000,) int64,
-        peak float), equal to the host sum exactly."""
+        peak float), equal to the host sum exactly. A NaN peak wins within
+        a device's share (torch's max, like jnp.max) and loses across the
+        shares (np.fmax; NaN only when every share's is), as the JAX
+        package's pmax over its CPU mesh treats it."""
         n = len(self.runners)
         parts, tops = [], []
         for r, rows, pk in zip(self.runners, np.array_split(np.asarray(hist), n),
@@ -1037,7 +1040,7 @@ class RunnerGroup:
                     parts.append(_to_device(rows, r.device).sum(dim=0, dtype=torch.int64))
                     tops.append(_to_device(pk, r.device).max())
         total = _sum_on_first(parts, self.runners[0].device)
-        return total.cpu().numpy(), max((float(t) for t in tops), default=0.0)
+        return total.cpu().numpy(), float(np.fmax.reduce([float(t) for t in tops])) if tops else 0.0
 
 
 def _sum_on_first(parts: list, device: torch.device) -> torch.Tensor:

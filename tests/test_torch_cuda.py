@@ -471,3 +471,34 @@ def test_dryruns_on_the_card(dev, capfd):
     assert cc.COUNT.kernel == 3 and cc.COUNT.plain == 0
     dryrun.dryrun_multihost(2, timeout_s=300)
     assert capfd.readouterr().out.count("album union bit-equal over gloo") == 2
+
+
+def test_bin_index_and_nan_windows_on_card_match_cpu(dev):
+    """The histogram's bin index on the card equals the CPU's on NaN,
+    infinite and out-of-range values (XLA's convert: NaN -> 0,
+    saturating, then the int32 add of the offset with its wrap), and a
+    NaN window lands in bin 2000 on the card as on the CPU."""
+    from mp3rgain_tpu_torch.ops import histogram as hi
+
+    v = torch.tensor([float("nan"), float("inf"), float("-inf"), 3e9, -3e9, 1e38,
+                      -2000.9, 1.5, -1.5, 9999.9])
+    assert torch.equal(hi.bin_index(v.to(dev)).cpu(), hi.bin_index(v))
+    win = hi.window_size(44100)
+    x = torch.full((1, 2, 3 * win), 0.1)
+    x[0, 1, win + 5] = float("nan")
+    lens = torch.tensor([3 * win])
+    got = hi.histogram(x.to(dev), lens.to(dev), win).cpu()
+    assert torch.equal(got, hi.histogram(x, lens, win)) and got[0, 2000] == 1
+
+
+def test_pns_overflow_stream_on_card_matches_cpu(dev, tmp_path):
+    """The PNS-overflow ADTS stream (testing/hostile.py) on the card's q
+    route and on the CPU: 0.00 dB from 58 windows in bin 2000, peak NaN."""
+    from mp3rgain_tpu_torch.testing import hostile
+
+    path = tmp_path / "pns_overflow.aac"
+    path.write_bytes(hostile.pns_overflow_stream())
+    for device in (dev, "cpu"):
+        r = aac.analyze_track_internal(path, device=device, device_prep=True)
+        assert r.result.loudness_db == 0.0 and np.isnan(r.result.peak)
+        assert r.histogram.sum() == r.histogram[2000] == 58

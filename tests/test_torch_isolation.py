@@ -54,7 +54,7 @@ def test_scan_covers_the_port():
                  "decode/aac_frontend.py", "decode/aac_prep.py",
                  "decode/aac_synthesis.py", "decode/aac_format_tables.py",
                  "testing/craft_aac.py", "testing/make_smoke_data.py", "gui.py",
-                 "parallel/multihost.py", "parallel/dryrun.py"):
+                 "parallel/multihost.py", "parallel/dryrun.py", "testing/hostile.py"):
         assert os.path.join(PORT, must) in files, must
 
 

@@ -146,6 +146,31 @@ def test_a_failure_on_one_slice_fails_the_album_on_every_process(fixtures_dir, t
     assert "a3_corrupt.mp3" in outs[1][2] and "No valid MP3 frames" in outs[1][2]
 
 
+UNION_PROG = ("import json, sys\n"
+              "import numpy as np\n"
+              "from mp3rgain_tpu_torch.parallel import multihost\n"
+              "pid = multihost.process_index()\n"
+              "peak = float('nan') if pid == int(sys.argv[1]) else 0.25 * (pid + 1)\n"
+              "hist = np.zeros(12000, np.uint64)\n"
+              "hist[2000 + pid] = 3\n"
+              "h, p = multihost.album_union_global(hist, peak)\n"
+              "print(json.dumps({'peak': repr(p), 'bins': np.nonzero(h)[0].tolist()}))\n")
+
+
+@pytest.mark.parametrize("nan_pid", [0, 1])
+def test_album_union_drops_a_nan_peak_like_pmax(nan_pid):
+    """A process whose album peak is NaN, whichever rank it is: the union
+    on every process is the other process's peak, as under the JAX
+    package's pmax (which drops a NaN operand; gloo's MAX alone keeps or
+    drops it by operand order)."""
+    out = _group([str(nan_pid)], 2, prog=UNION_PROG)
+    other = 0.25 * (2 - nan_pid)
+    for rc, stdout, stderr in out:
+        assert rc == 0, stderr[-2000:]
+        assert json.loads(stdout.strip().splitlines()[-1]) == {"peak": repr(other),
+                                                               "bins": [2000, 2001]}
+
+
 def test_dryrun_multihost_2proc(capfd):
     dryrun.dryrun_multihost(2, device="cpu", timeout_s=TIMEOUT_S)
     out = capfd.readouterr().out

@@ -280,6 +280,22 @@ def test_album_reduce_device_equals_host_sum_and_jax(n_runners, rows):
     assert total_p == jp
 
 
+@pytest.mark.parametrize("nan_row", [0, 3, 4])
+def test_album_reduce_device_treats_a_nan_peak_like_jax(nan_row):
+    """A track whose peak is NaN (non-finite decoded samples), in the
+    first share or a later one: the album peak equals the JAX package's,
+    whose pmax over the CPU mesh drops a share's NaN (Python's max over
+    the shares kept it when it came first)."""
+    rng = np.random.default_rng(SEED)
+    hists = np.zeros((5, hi.HISTOGRAM_SIZE), np.int32)
+    peaks = rng.random(5).astype(np.float32)
+    peaks[nan_row] = np.nan
+    group = pr.RunnerGroup(runners=[pr.Runner("cpu") for _ in range(2)])
+    _, total_p = group.album_reduce_device(hists, peaks)
+    _, jp = jpr.MeshRunner(mesh=_jax_mesh(2)).album_reduce_device(hists, peaks)
+    assert not np.isnan(jp) and total_p == jp
+
+
 @pytest.mark.parametrize("n", [2, 3])
 def test_dryrun_multichip(n, capsys):
     dryrun.dryrun_multichip(n, device="cpu")
