@@ -46,9 +46,16 @@ against one Runner (every track exactly equal, scans in turns), one batch
 split over the two Runners against the single dispatch, dryrun_multichip(2)
 and dryrun_multihost(2); the CLI's album path as two and three real
 processes under the MP3RGAIN_* environment (a gloo group over localhost)
-against one process, an empty slice, byte surgery on a slice; and
-gui.AppState(device="cuda") against the CLI. Every check raises on
-failure; there is no CPU branch.
+against one process, an empty slice, byte surgery on a slice;
+gui.AppState(device="cuda") against the CLI; and last the oracle phase,
+which holds the card to references that share no arithmetic with it:
+every committed MP3 on the light and the host-decoded route and every
+committed M4A and ADTS track on the q route within 0.05 dB of the float64
+reference gain (testing/reference.py) of its PCM decoded on the CPU, peaks
+within rtol 2e-4; decode_file on the card against the CPU; the byte-surgery
+scale oracle (s more gain steps decode to the PCM times 2^(s/4)); the peak
+contract through the CLI on a clip whose peak exceeds 1.0; and entry().
+Every check raises on failure; there is no CPU branch.
 Output, one phase per line:
 
   device / nvidia-smi name and power limit / build seconds and K1/K2/K3
@@ -58,7 +65,8 @@ Output, one phase per line:
   split / heavy slice launch counts, CPU and light agreement, light
   unfused == heavy / decode_file / entry-point gains / AAC clips, slice,
   routes, stages and entry points / library scan / per-track CLI walls /
-  multi_runner / multihost / gui /
+  multi_runner / multihost / gui / oracle: one line per clip and route,
+  decode_file, byte surgery, peak contract, entry(), the phase's wall /
   times / a JSON line of per-kernel results (K1/K2 launches from the
   library scan) /
   last line {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -1369,6 +1377,260 @@ def gui_phase(dev, card, clips):
           f"{changed} files, undo restored every byte", flush=True)
 
 
+ORACLE_DB = 0.05  # |card - float64 reference| budget: the product's accuracy (PERF.md §1)
+ORACLE_PEAK_RTOL = 2e-4
+PEAK_KEYS = ("max_amplitude", "peak")
+
+
+def _same_cli_file(card_f: dict, cpu_f: dict) -> bool:
+    """One file's JSON from the CLI on the card equals the CPU's: the same
+    keys, integers and flags, strings equal but for numbers with a
+    fraction, peaks within rtol 2e-4, other floats (dB) within 0.02."""
+    import re
+
+    if sorted(card_f) != sorted(cpu_f):
+        return False
+    for k, a in card_f.items():
+        b = cpu_f[k]
+        if isinstance(a, float) or isinstance(b, float):
+            tol = ORACLE_PEAK_RTOL * abs(b) if k in PEAK_KEYS else 0.02
+            if abs(a - b) > tol:
+                return False
+        elif isinstance(a, str) and isinstance(b, str):
+            if re.sub(r"\d+\.\d+", "#", a) != re.sub(r"\d+\.\d+", "#", b):
+                return False
+        elif a != b:
+            return False
+    return True
+
+
+def oracle_phase(dev, card):
+    """Hold the card to references that share no arithmetic with it: every
+    committed clip through each of its routes against the float64
+    reference gain and peak of its decoded PCM (testing/reference.py),
+    the decoder on the card against the CPU, the byte-surgery scale oracle
+    (a file with s more gain steps decodes to its PCM times 2^(s/4)), the
+    peak contract (an MP3 whose peak exceeds 1.0 through the CLI), and
+    entry(). No step here is timed but the phase's wall."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mp3rgain_tpu_torch import aac, analysis, bitstream, cli
+    from mp3rgain_tpu_torch import entry as entry_mod
+    from mp3rgain_tpu_torch.decode import class_core as cc
+    from mp3rgain_tpu_torch.decode import entropy_kernel as ek
+    from mp3rgain_tpu_torch.decode import frontend as fe
+    from mp3rgain_tpu_torch.decode import hybrid_kernel as hk
+    from mp3rgain_tpu_torch.decode import synthesis as syn
+    from mp3rgain_tpu_torch.parallel import runner as pr
+    from mp3rgain_tpu_torch.replaygain import PINK_REF, db_to_steps
+    from mp3rgain_tpu_torch.testing import make_smoke_data as smoke
+    from mp3rgain_tpu_torch.testing.reference import reference_gain, reference_peak
+
+    t_phase = time.perf_counter()
+    runner = pr.Runner(dev)
+    worst = {"db": 0.0, "peak": 0.0}
+
+    def path(name):
+        return os.path.join(smoke.DATA_DIR, name)
+
+    def reset():
+        for c in (ek.COUNT, hk.COUNT, cc.COUNT):
+            c.reset()
+
+    def plain_calls():
+        return ek.COUNT.plain + hk.COUNT.plain + cc.COUNT.plain
+
+    def hold(what, gain, peak, ref_gain, ref_peak, pcm_of):
+        diff = gain - ref_gain
+        rel = abs(peak / ref_peak - 1.0) if ref_peak else abs(peak)
+        check(abs(diff) <= ORACLE_DB,
+              f"{what}: card {gain:.4f} dB vs float64 reference {ref_gain:.4f} dB")
+        check(rel <= ORACLE_PEAK_RTOL,
+              f"{what}: card peak {peak:.6f} vs reference {ref_peak:.6f}")
+        worst["db"] = max(worst["db"], abs(diff))
+        worst["peak"] = max(worst["peak"], rel)
+        print(f"oracle {what}: card {gain:.4f} dB, reference {ref_gain:.4f} dB "
+              f"({pcm_of}), diff {diff:+.4f} dB; peak {peak:.6f} vs {ref_peak:.6f} "
+              f"(rel {rel:.2e})", flush=True)
+
+    # (a) MP3: each committed clip on the light route (K1 + K2) and the
+    # host-decoded route (K3), against the reference on the port's CPU
+    # decode; the card's decode against the CPU's.
+    mp3 = [smoke.BENCH_TRACK, smoke.MONO_TRACK, smoke.TRANSIENT_TRACK, smoke.HOT_TRACK]
+    dec = []
+    for name in mp3:
+        with open(path(name), "rb") as f:
+            data = f.read()
+        pcm, sr = syn.decode_file(path(name), device="cpu")
+        ref_g, ref_p = reference_gain(pcm, sr), reference_peak(pcm)
+        light = fe.unpack_data_light_packed(data)
+        reset()
+        _, louds, peaks = runner.analyze_unpacked_light([light], sr, light.n_channels)
+        check(ek.COUNT.kernel >= 1 and hk.COUNT.kernel >= 1 and plain_calls() == 0,
+              f"{name}: light route launched K1 and K2, no plain call")
+        hold(f"{name} light route", PINK_REF - float(louds[0]), float(peaks[0]),
+             ref_g, ref_p, "CPU decode")
+        full = fe.unpack_data(data)
+        reset()
+        _, louds, peaks = runner.analyze_unpacked([full], sr, full.n_channels)
+        check(cc.COUNT.kernel >= 1 and plain_calls() == 0,
+              f"{name}: heavy route launched K3, no plain call")
+        hold(f"{name} heavy route", PINK_REF - float(louds[0]), float(peaks[0]),
+             ref_g, ref_p, "CPU decode")
+        got, sr_g = syn.decode_file(path(name), device=dev)
+        bound = 5e-4 * float(np.sqrt((pcm ** 2).mean())) + 1e-5
+        err = float(np.abs(got - pcm).max())
+        check(sr_g == sr and got.shape == pcm.shape and err < bound,
+              f"decode_file {name} on the card vs CPU ({err:.3e} >= {bound:.3e})")
+        dec.append(f"{name} {err:.2e} (bound {bound:.2e})")
+    print(f"oracle decode_file (cuda vs cpu, max|err|): {'; '.join(dec)}", flush=True)
+
+    # (b) AAC: each committed M4A and ADTS clip (both tracks of the
+    # two-track file) on the q route, against the reference on the PCM
+    # that route analyses (its PNS noise is keyed by batch row), computed
+    # on the CPU, and on the host decoder's PCM, whose PNS noise differs:
+    # held for every clip without PNS bands, reported for the PNS clip.
+    aac_clips = [(smoke.AAC_BENCH_TRACK, None), (smoke.AAC_TRANSIENT_TRACK, None),
+                 (smoke.AAC_PNS_TRACK, None), (smoke.AAC_ADTS_TRACK, None),
+                 (smoke.AAC_TWO_TRACKS, 0), (smoke.AAC_TWO_TRACKS, 1)]
+    pns_finding = None
+    for name, track in aac_clips:
+        what = name if track is None else f"{name} track {track}"
+        r = aac.analyze_track_internal(path(name), track, device=dev, runner=runner,
+                                       device_prep=True).result
+        q_pcm, sr = aac.decode_file_q(path(name), track, device="cpu")
+        hold(f"{what} q route", r.gain_db, r.peak, reference_gain(q_pcm, sr),
+             reference_peak(q_pcm), "the q route's PCM on the CPU")
+        host_pcm, sr_h = aac.decode_file(path(name), track, device="cpu")
+        host_pcm = np.clip(host_pcm, -aac.AAC_CLIP, aac.AAC_CLIP)
+        check(sr_h == sr, f"{what}: sample rates")
+        ref_host = reference_gain(host_pcm, sr)
+        if name == smoke.AAC_PNS_TRACK:
+            pns_finding = (r.gain_db - ref_host, r.peak, reference_peak(host_pcm))
+            print(f"oracle {what} q route vs the host decoder's PCM (different PNS "
+                  f"noise, reported, not held): card {r.gain_db:.4f} dB, reference "
+                  f"{ref_host:.4f} dB, diff {pns_finding[0]:+.4f} dB; peak "
+                  f"{r.peak:.6f} vs {pns_finding[2]:.6f}", flush=True)
+        else:
+            hold(f"{what} q route", r.gain_db, r.peak, ref_host,
+                 reference_peak(host_pcm), "the host decoder's PCM on the CPU")
+    check(pns_finding is not None, "the PNS clip was analysed")
+
+    root = tempfile.mkdtemp(prefix="mp3rgain-oracle-")
+    try:
+        # (c) The byte-surgery scale oracle: global_gain enters requantization
+        # as an exact 2^(gain/4), so s more steps scale the decoded PCM by
+        # 2^(s/4); the port's decoder on the card stands in for libmpg123.
+        base, _ = syn.decode_file(path(smoke.BENCH_TRACK), device=dev)
+        info = bitstream.analyze(path(smoke.BENCH_TRACK))
+        scale_errs = []
+        for steps in (-3, 2, 4):
+            check(info.max_gain + max(steps, 0) <= 255 and info.min_gain + min(steps, 0) >= 0,
+                  f"no gain saturation at {steps:+d} steps")
+            p = os.path.join(root, f"bench{steps:+d}.mp3")
+            shutil.copy(path(smoke.BENCH_TRACK), p)
+            check(bitstream.apply_gain(p, steps) == info.frame_count,
+                  f"apply_gain({steps:+d}) rewrote every frame")
+            got, _ = syn.decode_file(p, device=dev)
+            want = base.astype(np.float64) * 2.0 ** (steps / 4.0)
+            bound = 5e-4 * float(np.sqrt((want ** 2).mean())) + 1e-5
+            err = float(np.abs(got - want).max())
+            check(got.shape == base.shape and err < bound,
+                  f"{steps:+d} steps decode to 2^({steps}/4) x the PCM ({err:.3e} >= "
+                  f"{bound:.3e})")
+            scale_errs.append(f"{steps:+d} steps max|err| {err:.2e} (bound {bound:.2e})")
+        print(f"oracle byte surgery on {smoke.BENCH_TRACK}, decoded on the card: "
+              f"{'; '.join(scale_errs)}", flush=True)
+
+        # (d) The peak contract: the hot clip, +4 steps, peaks above 1.0.
+        hot = os.path.join(root, "hot.mp3")
+        mid = os.path.join(root, "mid.mp3")
+        shutil.copy(path(smoke.HOT_TRACK), hot)
+        shutil.copy(path(smoke.HOT_TRACK), mid)
+        bitstream.apply_gain(hot, 4)
+        peak = analysis.find_peak_amplitude(hot, device=dev).peak
+        peak_cpu = analysis.find_peak_amplitude(hot, device="cpu").peak
+        check(1.2 < peak < 2.0 and abs(peak / peak_cpu - 1) <= ORACLE_PEAK_RTOL,
+              f"+4 steps: unclipped peak {peak} above 1.0, CPU {peak_cpu}")
+        mid_peak = analysis.find_peak_amplitude(mid, device=dev).peak
+
+        def run_cli(argv, device):
+            out, err = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc = cli.main(argv, device=device)
+            check(rc == 0, f"cli {argv} on {device}: exit code {rc}")
+            return json.loads(out.getvalue())["files"][0]
+
+        runs = {}
+        for key, argv in (("x", ["-x", "-o", "json", hot]),
+                          ("k", ["-n", "-k", "-r", "-o", "json", hot]),
+                          ("k_mid", ["-n", "-k", "-r", "-o", "json", mid]),
+                          ("compat_x", ["--clip-peak-compat", "-x", "-o", "json", hot]),
+                          ("compat_k", ["--clip-peak-compat", "-n", "-k", "-r", "-o",
+                                        "json", hot])):
+            runs[key] = run_cli(argv, str(dev))
+            cpu_f = run_cli(argv, "cpu")
+            check(_same_cli_file(runs[key], cpu_f),
+                  f"cli {' '.join(argv[:-1])} on the card {runs[key]} equals the CPU's {cpu_f}")
+        x, k, k_mid = runs["x"], runs["k"], runs["k_mid"]
+        check(x["max_amplitude"] > 32768.0 and "may be clipped" in (x.get("warning") or ""),
+              f"-x reports the unclipped peak and warns: {x}")
+        check(k["gain_applied_steps"] == max(db_to_steps(-20.0 * np.log10(peak)), 0) == 0
+              and "prevent clipping" in (k.get("warning") or ""),
+              f"-k caps the gain at 0 steps for peak {peak}: {k}")
+        cap = max(db_to_steps(-20.0 * np.log10(mid_peak)), 0)
+        check(0 < cap == k_mid["gain_applied_steps"]
+              and mid_peak * 10 ** (1.5 * cap / 20) <= 1.0,
+              f"-k caps the gain at {cap} steps for peak {mid_peak}: {k_mid}")
+        check(abs(runs["compat_x"]["max_amplitude"] - 32768.0) < 1e-6
+              and abs(runs["compat_k"]["peak"] - 1.0) < 1e-9
+              and runs["compat_k"]["gain_applied_steps"] == 0,
+              f"--clip-peak-compat reports 1.0: {runs['compat_x']}, {runs['compat_k']}")
+        print(f"oracle peak contract on {smoke.HOT_TRACK} +4 steps: card peak {peak:.6f} "
+              f"(CPU {peak_cpu:.6f}); -x max_amplitude {x['max_amplitude']:.1f}, "
+              f"'{x['warning']}'; -n -k -r applies {k['gain_applied_steps']} of "
+              f"{db_to_steps(PINK_REF - k['loudness_db'])} steps; unboosted (peak "
+              f"{mid_peak:.6f}) -k caps at {cap} steps, peak after "
+              f"{mid_peak * 10 ** (1.5 * cap / 20):.4f}; --clip-peak-compat peak "
+              f"{runs['compat_k']['peak']}, max_amplitude "
+              f"{runs['compat_x']['max_amplitude']:.1f}; five CLI outputs equal the CPU's",
+              flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (e) entry(): one forward step of the heavy route on the card.
+    fn, args = entry_mod.entry(dev)
+    reset()
+    hist, idx, pk = (t.cpu().numpy() for t in fn(*args))
+    k3, plain = cc.COUNT.kernel, plain_calls()
+    check(k3 >= 1 and plain == 0, f"entry(): K3 launches {k3}, plain calls {plain}")
+    c_fn, c_args = entry_mod.entry("cpu")
+    c_hist, c_idx, c_pk = (t.numpy() for t in c_fn(*c_args))
+    check(bool((hist.sum(axis=1) == c_hist.sum(axis=1)).all()), "entry(): windows exact")
+    check(int(np.abs(idx.astype(int) - c_idx.astype(int)).max()) <= 2,
+          "entry(): loudness index within 2 bins of the CPU")
+    check(bool(np.allclose(pk, c_pk, rtol=ORACLE_PEAK_RTOL, atol=0)),
+          "entry(): peak within rtol 2e-4 of the CPU")
+    print(f"oracle entry() on {dev}: K3 launches {k3}, plain calls {plain}; windows "
+          f"{hist.sum(axis=1).tolist()} equal the CPU's, max index diff "
+          f"{int(np.abs(idx.astype(int) - c_idx.astype(int)).max())}, max peak rel diff "
+          f"{float(np.abs(pk / c_pk - 1).max()):.2e}", flush=True)
+    del runner
+    torch.cuda.empty_cache()
+    print(f"oracle phase {card}: wall {time.perf_counter() - t_phase:.1f} s; "
+          f"{len(mp3)} MP3 clips x 2 routes and {len(aac_clips)} AAC tracks on the q "
+          f"route within {worst['db']:.4f} dB (budget {ORACLE_DB}) and peak rel "
+          f"{worst['peak']:.2e} (rtol {ORACLE_PEAK_RTOL}) of the float64 reference; PNS "
+          f"clip vs the host decoder's PCM {pns_finding[0]:+.4f} dB (reported)",
+          flush=True)
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1839,7 +2101,10 @@ def main() -> None:
     multihost_phase(dev, card, clips)
     gui_phase(dev, card, clips)
 
-    # --- 13. times ---------------------------------------------------------------
+    # --- 13. the card against the float64 reference, the oracles, entry() ----------
+    oracle_phase(dev, card)
+
+    # --- 14. times ---------------------------------------------------------------
     dev_s = timing["device_ms"] / 1e3
     h_dev_s = h_timing["device_ms"] / 1e3
     split = timing["prep_s"] + timing["h2d_s"] + dev_s

@@ -11,6 +11,10 @@ time.
 Every C entry point launches on the stream it is given and returns
 cudaGetLastError(); `check` raises on a nonzero code. There is no
 fallback: a failed build or launch raises.
+
+Build ahead of time (prints the library's path and the seconds spent):
+
+    python -m mp3rgain_tpu_torch._build [--force]
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import glob
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 
@@ -139,3 +144,8 @@ def check(rc: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+if __name__ == "__main__":
+    spent = build(force="--force" in sys.argv[1:])
+    print(f"{LIB_PATH} {spent:.2f} s")

@@ -411,8 +411,36 @@ def find_peak_amplitude(path, *, device="cuda", runner: pr.Runner | None = None,
     )
 
 
-def decode_file(path, *, device="cuda"):
-    """Full-file AAC decode on the device's shared IMDCT tables; (pcm
-    (C, N) np array, sample_rate)."""
+def decode_file(path, track_index=None, *, device="cuda"):
+    """Full-file AAC decode of the host-decoded spectra (the f16 route's
+    host decode, in f32) on the device's shared IMDCT tables; (pcm (C, N)
+    np array, sample_rate)."""
     return aac_synthesis.decode_file(
-        path, device=device, synthesis=pr.shared_runner(device).aac_synthesis())
+        path, track_index, device=device,
+        synthesis=pr.shared_runner(device).aac_synthesis())
+
+
+def decode_file_q(path, track_index=None, *, device="cuda",
+                  runner: pr.Runner | None = None):
+    """The PCM that the device-prep route analyses for one track, as a
+    batch of one: spectral prep and the IMDCT of analysis_core_q, clipped
+    at ±AAC_CLIP, cut to the track's valid samples; (pcm (C, N) np array,
+    sample_rate). Its PNS noise is keyed by batch row, so it is the noise
+    of analyze_track_internal(..., device_prep=True), not the host
+    decoder's."""
+    runner = runner or pr.shared_runner(device)
+    u = unpack_for(path, track_index, True)
+    nch = u.n_channels or 1
+    prepared = runner.prepare_aac_q([u], u.sample_rate, nch)
+    args = [pr._to_device(a, runner.device) for a in prepared.arrays]
+    bufpool.give(*prepared.pooled)
+    (spec_q4, meta, esc_idx, esc_val, fb16, fbexp, fb_dst, wseq, wshape, valid,
+     rows) = args
+    tail = runner.aac_tail(u.sample_rate, nch)
+    with torch.no_grad():
+        spec = tail.prep.prep_spectra(spec_q4, meta, esc_idx, esc_val, fb16, fbexp,
+                                      fb_dst, n_channels=nch)
+        pcm = tail.synthesis.decode(spec, wseq, wshape, rows,
+                                    prepared.shapes["short_counts"], n_channels=nch)
+        pcm = pcm[0, :, : int(valid[0])].clamp_(-AAC_CLIP, AAC_CLIP)
+    return pcm.cpu().numpy(), u.sample_rate

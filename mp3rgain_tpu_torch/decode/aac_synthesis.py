@@ -212,8 +212,10 @@ def decode_unpacked(u: af.UnpackedAac, *, device="cuda",
     return pcm[0], u.sample_rate
 
 
-def decode_file(path, *, device="cuda", synthesis: AacSynthesis | None = None):
-    """Full-file AAC decode; returns (pcm (C, N) np array, sample_rate)."""
-    u = af.unpack_file(path)
+def decode_file(path, track_index=None, *, device="cuda",
+                synthesis: AacSynthesis | None = None):
+    """Full-file AAC decode of one track (an MP4's first audio track by
+    default); returns (pcm (C, N) np array, sample_rate)."""
+    u = af.unpack_file(path, track_index=track_index)
     pcm, sr = decode_unpacked(u, device=device, synthesis=synthesis)
     return pcm.cpu().numpy(), sr

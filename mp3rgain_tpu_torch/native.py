@@ -23,6 +23,10 @@ environment switches (device.py).
 
 `_lib` is the loaded library (built on first attribute access);
 `_inbuf` and `_u8p` are the ctypes helpers the callers pass buffers with.
+
+Build ahead of time (prints the library's path and the seconds spent):
+
+    python -m mp3rgain_tpu_torch.native [--force]
 """
 
 from __future__ import annotations
@@ -31,7 +35,9 @@ import ctypes
 import fcntl
 import os
 import subprocess
+import sys
 import threading
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -342,3 +348,9 @@ def ape_remove_region(data: bytes) -> tuple[int, int] | None:
     if rc != 0:
         return None
     return audio_end.value, tail.value
+
+
+if __name__ == "__main__":
+    t0 = time.perf_counter()
+    build(force="--force" in sys.argv[1:])
+    print(f"{SO_PATH} {time.perf_counter() - t0:.2f} s")

@@ -301,3 +301,34 @@ def equal_loudness(x: torch.Tensor, sample_rate: int,
     """Equal-loudness filter along the last axis of (B, T), on x's device
     and in x's dtype."""
     return EqualLoudness(sample_rate, block).to(x.device)(x)
+
+
+# ---------------------------------------------------------------------------
+# Exact per-sample oracle (direct-form I, float64) for validation.
+# ---------------------------------------------------------------------------
+
+
+def equal_loudness_scan(x, sample_rate: int) -> torch.Tensor:
+    """Reference-exact float64 filter of (B, T) x, the counterpart of the
+    JAX package's per-sample direct-form-I scan: the Yule AR(10) stage,
+    then the Butterworth stage, each adding DENORMAL_PREVENTION at every
+    step. Returns a float64 tensor on x's device (the CPU for an array).
+
+    Each stage is scipy's float64 lfilter: the same difference equation
+    from zero state, run in compiled code (a Python loop over samples is
+    far too slow for a full track), with nothing to build (scipy is on
+    every machine the port runs on, where a loop in the host C++ library
+    would be one more native entry point to keep). The constant added at
+    every step enters by linearity: the stage's output is lfilter(b, a,
+    input) plus c * lfilter([1], a, ones). This is a test oracle; no route
+    calls it."""
+    from scipy.signal import lfilter
+
+    plan = filter_plan(sample_rate)
+    t = torch.as_tensor(x)
+    out = t.detach().cpu().numpy().astype(np.float64)
+    ones = np.ones(out.shape[-1])
+    for b, a in ((plan.yule_b, YULE_A[sample_rate]),
+                 (plan.butter_b, (1.0, *plan.butter_section))):
+        out = lfilter(b, a, out, axis=-1) + DENORMAL_PREVENTION * lfilter([1.0], a, ones)
+    return torch.from_numpy(out).to(t.device)

@@ -32,7 +32,7 @@ from mp3rgain_tpu_torch.decode import synthesis as syn  # noqa: E402
 from mp3rgain_tpu_torch.decode.format_tables import SR_ROW  # noqa: E402
 from mp3rgain_tpu_torch.ops import coeffs, iir  # noqa: E402
 from mp3rgain_tpu_torch.parallel import runner as pr  # noqa: E402
-from mp3rgain_tpu_torch.testing import make_smoke_data as smoke  # noqa: E402
+from mp3rgain_tpu_torch.testing import fixtures as tfixtures  # noqa: E402
 from mp3rgain_tpu_torch.utils import bufpool  # noqa: E402
 
 torch.set_num_threads(2)
@@ -201,16 +201,16 @@ def test_luts_from_packed_equal_plain_tables():
 
 def _tracks():
     out = []
-    for sr, ch, mode, br, seed in ((44100, 2, smoke.MODE_JOINT, 128, 1),
-                                   (44100, 2, smoke.MODE_JOINT, 192, 2),
-                                   (44100, 2, smoke.MODE_STEREO, 96, 3)):
+    for sr, ch, mode, br, seed in ((44100, 2, tfixtures.MODE_JOINT, 128, 1),
+                                   (44100, 2, tfixtures.MODE_JOINT, 192, 2),
+                                   (44100, 2, tfixtures.MODE_STEREO, 96, 3)):
         rng = np.random.default_rng(seed)
         n = int(sr * 0.4)
         wave = 0.3 * np.sin(2 * np.pi * (300 + 70 * seed) * np.arange(n) / sr)
         wave += 0.1 * rng.standard_normal(n)
         pcm = np.clip(wave * 32767, -32768, 32767).astype(np.int16)
         pcm = np.stack([pcm, np.roll(pcm, 5)], axis=1)
-        out.append(smoke.encode_mp3(pcm, sr, bitrate=br, mode=mode))
+        out.append(tfixtures.encode_mp3(pcm, sr, bitrate=br, mode=mode))
     return out
 
 

@@ -502,3 +502,35 @@ def test_pns_overflow_stream_on_card_matches_cpu(dev, tmp_path):
         r = aac.analyze_track_internal(path, device=device, device_prep=True)
         assert r.result.loudness_db == 0.0 and np.isnan(r.result.peak)
         assert r.histogram.sum() == r.histogram[2000] == 58
+
+
+def test_entry_on_the_card_matches_the_cpu(dev):
+    """entry() on the card: K3 launched, no plain call; windows exact,
+    loudness index within 2 bins and peak within rtol 2e-4 of the CPU."""
+    from mp3rgain_tpu_torch import entry
+
+    fn, args = entry.entry()
+    assert all(a.device.type == "cuda" for a in args)
+    cc.COUNT.reset()
+    hist, idx, peak = (t.cpu().numpy() for t in fn(*args))
+    assert cc.COUNT.kernel >= 1 and cc.COUNT.plain == 0
+    c_fn, c_args = entry.entry(device="cpu")
+    c_hist, c_idx, c_peak = (t.numpy() for t in c_fn(*c_args))
+    assert np.array_equal(hist.sum(axis=1), c_hist.sum(axis=1))
+    assert np.abs(idx.astype(int) - c_idx.astype(int)).max() <= 2
+    np.testing.assert_allclose(peak, c_peak, rtol=2e-4)
+
+
+def test_kernel_build_entry_point(dev):
+    """`python -m mp3rgain_tpu_torch._build --force` builds the kernel
+    library and prints its path and the seconds spent."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-m", "mp3rgain_tpu_torch._build", "--force"],
+                          cwd=root, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    path, seconds, unit = proc.stdout.split()
+    assert path == _build.LIB_PATH and os.path.exists(path)
+    assert float(seconds) > 0 and unit == "s"

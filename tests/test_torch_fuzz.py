@@ -48,6 +48,7 @@ from mp3rgain_tpu_torch.decode import frontend as fe  # noqa: E402
 from mp3rgain_tpu_torch.ops import histogram as hi  # noqa: E402
 from mp3rgain_tpu_torch.parallel import runner as pr  # noqa: E402
 from mp3rgain_tpu_torch.testing import craft, craft_aac, hostile  # noqa: E402
+from mp3rgain_tpu_torch.testing import fixtures as tfixtures  # noqa: E402
 from mp3rgain_tpu_torch.testing import make_smoke_data as smoke  # noqa: E402
 
 torch.set_num_threads(2)
@@ -127,7 +128,7 @@ def test_fuzz_ape_paths():
 def test_fuzz_mp4_paths(tmp_path):
     rng = np.random.default_rng(44)
     t = np.arange(4410) / 44100
-    m4a = smoke.encode_m4a(np.stack([np.sin(880 * t, dtype=np.float32)] * 2, 1), 44100)
+    m4a = tfixtures.encode_m4a(np.stack([np.sin(880 * t, dtype=np.float32)] * 2, 1), 44100)
     tags = mp4meta.ReplayGainTags()
     tags.set_track(1.0, 0.9)
     for mutated in hostile.mutations(m4a, rng, 60):

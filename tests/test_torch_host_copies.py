@@ -6,12 +6,24 @@ built by native.py), the MP3 front-end (decode/frontend.py), the AAC front-end
 (_native/aacdec.cpp, decode/aac_frontend.py, its tables and crafted
 streams, the libavcodec encoder of the committed clips), the table
 builders and filter coefficients, the buffer pool, the result types, the
-crafted streams, the libmp3lame encoder, the CLI's host modules (ape,
-id3v2, bitstream, mp4meta, utils) and the GUI. Every copy is held here to its
-original: the Python copies by their code (docstrings and comments aside)
-and by their outputs, the C++ copies by their code lines and by the
-outputs of the functions over them, on the committed clips and the
-crafted streams.
+crafted streams, the test oracles (testing/mpg123.py, avcodec.py and
+fixtures.py: the libmpg123 decoder, the libavcodec decoder and encoder,
+the libmp3lame encoder and the standard fixture set), the CLI's host
+modules (ape, id3v2, bitstream, mp4meta, utils) and the GUI. Every copy is
+held here to its original: the Python copies by their code (docstrings and
+comments aside) and by their outputs, the C++ copies by their code lines
+and by the outputs of the functions over them, on the committed clips and
+the crafted streams.
+
+The three test oracles differ from their originals in one way: each
+library is opened and declared on first use. The original's module-level
+statements that name a library are, in order, the body of the copy's
+_load, and the library's name is a testing.lazylib.LazyLibrary over it;
+a fresh interpreter that imports them loads no codec library. Two oracles
+are new in the port and held to the JAX package's here:
+ops.iir.equal_loudness_scan (the float64 per-sample filter, within rtol
+1e-9 on every rate) and testing.reference.reference_gain (equal to
+tests/test_replaygain.py::reference_analyze_pcm on the standard fixtures).
 
 gui.py differs from its original in the device its AppState carries and
 passes on and in the two strings that name the platform, and in nothing
@@ -27,6 +39,7 @@ byte-surgery entry points are the original's functions, held by code).
 
 import ast
 import dataclasses
+import json
 import os
 import re
 import subprocess
@@ -34,6 +47,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 pytest.importorskip("jax")
 
@@ -53,14 +67,20 @@ from mp3rgain_tpu.testing import avcodec  # noqa: E402
 from mp3rgain_tpu.testing import craft as jcraft  # noqa: E402
 from mp3rgain_tpu.testing import craft_aac as jcraft_aac  # noqa: E402
 from mp3rgain_tpu.testing import fixtures  # noqa: E402
+from mp3rgain_tpu.testing import mpg123 as jmpg123  # noqa: E402
 from mp3rgain_tpu_torch import ape, mp4meta, native, replaygain  # noqa: E402
 from mp3rgain_tpu_torch import bitstream as tbitstream  # noqa: E402
 from mp3rgain_tpu_torch.decode import aac_frontend  # noqa: E402
 from mp3rgain_tpu_torch.decode import entropy_tables, format_tables, frontend  # noqa: E402
 from mp3rgain_tpu_torch.decode import synth_window, tables  # noqa: E402
-from mp3rgain_tpu_torch.ops import coeffs  # noqa: E402
+from mp3rgain_tpu_torch.decode import synthesis as syn  # noqa: E402
+from mp3rgain_tpu_torch.ops import coeffs, iir  # noqa: E402
 from mp3rgain_tpu_torch.testing import craft, craft_aac  # noqa: E402
+from mp3rgain_tpu_torch.testing import avcodec as tavcodec  # noqa: E402
+from mp3rgain_tpu_torch.testing import fixtures as tfixtures  # noqa: E402
 from mp3rgain_tpu_torch.testing import make_smoke_data as smoke  # noqa: E402
+from mp3rgain_tpu_torch.testing import mpg123 as tmpg123  # noqa: E402
+from mp3rgain_tpu_torch.testing import reference  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PKG = os.path.join(ROOT, "mp3rgain_tpu")
@@ -540,13 +560,13 @@ def test_crafted_aac_streams_byte_identical(fn, kw):
                                                  (2, 48000, 192000)])
 def test_aac_encoder_copy_byte_identical(channels, sr, bitrate):
     pcm = _pcm(channels, sr, sr + channels).astype(np.float32) / 32768.0
-    mine = smoke.encode_adts(pcm, sr, bitrate=bitrate)
+    mine = tavcodec.encode_adts(pcm, sr, bitrate=bitrate)
     assert mine == avcodec.encode_adts(pcm, sr, bitrate=bitrate) and len(mine) > 1000
     if channels == 2:
         other = _pcm(1, 32000, 5).astype(np.float32) / 32768.0
-        assert (smoke.encode_m4a_multi([(pcm, sr), (other, 32000)], bitrate=bitrate)
+        assert (tfixtures.encode_m4a_multi([(pcm, sr), (other, 32000)], bitrate=bitrate)
                 == fixtures.encode_m4a_multi([(pcm, sr), (other, 32000)], bitrate=bitrate))
-        assert smoke.encode_m4a(pcm, sr, bitrate) == fixtures.encode_m4a(pcm, sr, bitrate)
+        assert tfixtures.encode_m4a(pcm, sr, bitrate) == fixtures.encode_m4a(pcm, sr, bitrate)
 
 
 def test_committed_aac_clips_are_what_the_generator_encodes():
@@ -576,17 +596,17 @@ def _pcm(channels: int, sr: int, seed: int) -> np.ndarray:
 
 
 @pytest.mark.parametrize("channels,sr,kw", [
-    (2, 44100, {"bitrate": 192, "mode": smoke.MODE_JOINT}),
-    (2, 44100, {"bitrate": 128, "mode": smoke.MODE_STEREO}),
-    (1, 22050, {"bitrate": 48, "mode": smoke.MODE_MONO}),
+    (2, 44100, {"bitrate": 192, "mode": tfixtures.MODE_JOINT}),
+    (2, 44100, {"bitrate": 128, "mode": tfixtures.MODE_STEREO}),
+    (1, 22050, {"bitrate": 48, "mode": tfixtures.MODE_MONO}),
     (2, 48000, {"vbr": True, "vbr_quality": 2}),
     (2, 32000, {"bitrate": 96, "write_vbr_tag": False}),
 ])
 def test_encoder_copy_byte_identical(channels, sr, kw):
-    assert (smoke.MODE_STEREO, smoke.MODE_JOINT, smoke.MODE_MONO) == (
+    assert (tfixtures.MODE_STEREO, tfixtures.MODE_JOINT, tfixtures.MODE_MONO) == (
         fixtures.MODE_STEREO, fixtures.MODE_JOINT, fixtures.MODE_MONO)
     pcm = _pcm(channels, sr, sr + channels)
-    mine = smoke.encode_mp3(pcm, sr, **kw)
+    mine = tfixtures.encode_mp3(pcm, sr, **kw)
     assert mine == fixtures.encode_mp3(pcm, sr, **kw) and len(mine) > 1000
 
 
@@ -671,8 +691,6 @@ def test_find_max_amplitude_matches_the_original(tmp_path):
     """The one bitstream function that differs: the gains read equal, the
     decoded peak (the port's pipeline on the CPU) within rtol 2e-4, and
     without a card the default device raises instead of estimating."""
-    import torch
-
     path = tmp_path / "t.mp3"
     path.write_bytes(_clip(smoke.TRANSIENT_TRACK))
     peak, max_gain, min_gain = tbitstream.find_max_amplitude(path, device="cpu")
@@ -686,3 +704,179 @@ def test_find_max_amplitude_matches_the_original(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(replaygain.DeviceUnavailable):
             tbitstream.find_max_amplitude(path)
+
+
+# --- the test oracles: the originals, their libraries loaded on first use ------------
+
+TESTING_COPIES = {
+    "testing/mpg123.py": ("_m",),
+    "testing/avcodec.py": ("_avu", "_swr", "_avc"),
+    "testing/fixtures.py": ("_lame",),
+}
+LAZY_IMPORTS = {"from .lazylib import LazyLibrary", "from functools import lru_cache"}
+
+
+@pytest.mark.parametrize("rel", sorted(TESTING_COPIES))
+def test_testing_copy_is_the_original_with_lazy_loads(rel):
+    """The original's module-level statements that name a library are, in
+    order, the body of the copy's _load (which returns the libraries);
+    each library name is a LazyLibrary; every other statement, function
+    and class is the original's, in order; the copy adds no import but
+    the two the lazy loads need."""
+    libs = TESTING_COPIES[rel]
+    theirs = _tree(os.path.join(JAX_PKG, rel)).body
+    mine = _tree(os.path.join(PORT_PKG, rel)).body
+
+    def is_import(n):
+        return isinstance(n, (ast.Import, ast.ImportFrom))
+
+    def is_load(n):
+        return (not isinstance(n, (ast.FunctionDef, ast.ClassDef)) and not is_import(n)
+                and any(isinstance(x, ast.Name) and x.id in libs for x in ast.walk(n)))
+
+    loads = [ast.dump(n) for n in theirs if is_load(n)]
+    assert len(loads) >= 3
+    loader = [n for n in mine if isinstance(n, ast.FunctionDef) and n.name == "_load"]
+    assert len(loader) == 1
+    loader = loader[0]
+    assert [ast.dump(n) for n in loader.body[:-1]] == loads
+    ret = loader.body[-1]
+    assert isinstance(ret, ast.Return)
+    returned = ret.value.elts if isinstance(ret.value, ast.Tuple) else [ret.value]
+    assert [n.id for n in returned] == list(libs)
+
+    proxies = [n for n in mine if isinstance(n, ast.Assign)
+               and isinstance(n.value, ast.Call)
+               and getattr(n.value.func, "id", None) == "LazyLibrary"]
+    assert [n.targets[0].id for n in proxies] == list(libs)
+
+    rest = [ast.dump(n) for n in mine
+            if n is not loader and n not in proxies and not is_import(n)]
+    assert rest == [ast.dump(n) for n in theirs if not is_load(n) and not is_import(n)]
+    mine_imports = {ast.unparse(n) for n in mine if is_import(n)}
+    theirs_imports = {ast.unparse(n) for n in theirs if is_import(n)}
+    assert theirs_imports <= mine_imports
+    assert mine_imports - theirs_imports <= LAZY_IMPORTS
+
+
+def test_mpg123_copy_decodes_the_same_arrays(tmp_path):
+    crafted = tmp_path / "intensity.mp3"
+    crafted.write_bytes(jcraft.craft_intensity_stream())
+    paths = [os.path.join(smoke.DATA_DIR, n) for n in (
+        smoke.BENCH_TRACK, smoke.MONO_TRACK, smoke.TRANSIENT_TRACK, smoke.HOT_TRACK)]
+    for path in paths + [str(crafted)]:
+        mine = tmpg123.decode_file(path)
+        assert mine[0].size > 0
+        _same(mine, jmpg123.decode_file(path), path)
+    _same(tmpg123.decode_file(paths[2], gapless=True),
+          jmpg123.decode_file(paths[2], gapless=True), "gapless")
+
+
+def test_decode_adts_copy_decodes_the_same_arrays():
+    streams = [_mp4_adts(smoke.AAC_ADTS_TRACK), _mp4_adts(smoke.AAC_TRANSIENT_TRACK),
+               _mp4_adts(smoke.AAC_PNS_TRACK),
+               jaf.mp4_to_adts(_clip(smoke.AAC_TWO_TRACKS), track_index=1)]
+    for i, data in enumerate(streams):
+        mine = tavcodec.decode_adts(data)
+        assert mine[0].size > 0
+        _same(mine, avcodec.decode_adts(data), f"stream {i}")
+
+
+def test_standard_fixtures_copy_byte_identical(tmp_path):
+    mine = tfixtures.generate_standard_fixtures(tmp_path / "mine")
+    theirs = fixtures.generate_standard_fixtures(tmp_path / "theirs")
+    names = sorted(os.listdir(mine))
+    assert len(names) == 12 and names == sorted(os.listdir(theirs))
+    for name in names:
+        assert (mine / name).read_bytes() == (theirs / name).read_bytes(), name
+    for kw in ({"sample_rate": 44100}, {"sample_rate": 8000, "seconds": 0.3,
+                                       "freq": 1000.0, "amplitude": 0.9, "channels": 1}):
+        _same(tfixtures.sine_pcm(**kw), fixtures.sine_pcm(**kw), str(kw))
+
+
+def test_committed_hot_clip_is_the_peak_contract_clip():
+    """hot_5s_44k_128k.mp3 is tests/test_peak_contract.py's clip before
+    its +4 gain steps, encoded by the JAX package's encoder."""
+    from test_peak_contract import _burst_pcm
+
+    assert np.array_equal(smoke.hot_pcm(), _burst_pcm(0.01, 0.8))
+    want = fixtures.encode_mp3(_burst_pcm(0.01, 0.8), 44100, bitrate=128)
+    assert _clip(smoke.HOT_TRACK) == want
+
+
+def test_testing_copies_load_no_codec_library_at_import():
+    """A fresh interpreter that imports the oracles, the generator, the
+    reference and entry.py has no codec library mapped and no
+    LazyLibrary loaded; decoding one clip then maps libmpg123 (the check
+    sees a load)."""
+    clip = os.path.join(smoke.DATA_DIR, smoke.TRANSIENT_TRACK)
+    prog = f"""
+import json, sys
+sys.path.insert(0, {ROOT!r})
+from mp3rgain_tpu_torch import entry
+from mp3rgain_tpu_torch.testing import avcodec, fixtures, make_smoke_data, mpg123, reference
+
+def mapped():
+    names = ("libmpg123", "libavcodec", "libavutil", "libswresample", "libmp3lame")
+    with open("/proc/self/maps") as f:
+        text = f.read()
+    return sorted(n for n in names if n in text)
+
+proxies = [mpg123._m, avcodec._avu, avcodec._swr, avcodec._avc, fixtures._lame]
+fixtures.sine_pcm(8000)
+before = (mapped(), [p.loaded for p in proxies])
+mpg123.decode_file({clip!r})
+print(json.dumps({{"before": before, "after": (mapped(), mpg123._m.loaded)}}))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", prog], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["before"] == [[], [False] * 5]
+    assert got["after"] == [["libmpg123"], True]
+
+
+# --- the two float64 oracles ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("rate", coeffs.SUPPORTED_RATES)
+def test_equal_loudness_scan_equals_the_original(rate):
+    """The port's lfilter oracle against the JAX per-sample scan, within
+    rtol 1e-9 and atol 1e-9·max|ref|. At the degenerate 88.2 kHz row both
+    overflow; they agree on every sample before either turns non-finite,
+    and both do so within a few samples of each other."""
+    import jax.numpy as jnp
+    from test_replaygain import iir as jiir
+
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 4096)) * 0.3 * 32768.0
+    ref = np.asarray(jiir.equal_loudness_scan(jnp.asarray(x), rate))
+    got = iir.equal_loudness_scan(x, rate)
+    assert got.dtype == torch.float64 and got.shape == ref.shape
+    got = got.numpy()
+    if rate in coeffs.DEGENERATE_RATES:
+        first = [int(np.argmin(np.isfinite(a), axis=-1).min()) for a in (got, ref)]
+        assert 1000 < min(first) and abs(first[0] - first[1]) <= 8, first
+        got, ref = got[:, : min(first)], ref[:, : min(first)]
+    assert np.isfinite(ref).all()
+    np.testing.assert_allclose(got, ref, rtol=1e-9, atol=1e-9 * np.abs(ref).max())
+
+
+STANDARD_FIXTURES = ["test_stereo.mp3", "test_mono.mp3", "test_joint_stereo.mp3",
+                     "test_vbr.mp3", "test_mpeg2_22050.mp3", "test_mpeg25_11025.mp3",
+                     "test_48000.mp3", "test_32000.mp3", "test_mpeg2_24000.mp3",
+                     "test_mpeg2_16000.mp3", "test_mpeg25_12000.mp3", "test_mpeg25_8000.mp3"]
+
+
+@pytest.mark.parametrize("name", STANDARD_FIXTURES)
+def test_reference_gain_equals_the_original(fixtures_dir, name):
+    """testing.reference.reference_gain against tests/test_replaygain.py's
+    reference_analyze_pcm on the same PCM (the port's CPU decode): the
+    same gain, exactly; reference_peak is max|pcm|."""
+    from test_replaygain import reference_analyze_pcm
+
+    pcm, sr = syn.decode_file(fixtures_dir / name, device="cpu")
+    assert reference.reference_gain(pcm, sr) == reference_analyze_pcm(
+        pcm.astype(np.float64), sr)
+    assert reference.reference_peak(pcm) == float(np.abs(pcm).max()) > 0

@@ -5,7 +5,8 @@ chip_smoke.py finds no import of `mp3rgain_tpu` or `jax` (nor of a
 submodule of either), wherever the import stands: at the top, inside a
 function or under a condition. And a fresh interpreter that imports
 every module of the port has neither name in sys.modules afterwards, nor
-a loaded host library or kernel library (those load on first use).
+a loaded host library or kernel library, nor a codec library that the
+test oracles bind (all of those load on first use).
 """
 
 import ast
@@ -19,6 +20,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "mp3rgain_tpu_torch"
 FORBIDDEN = ("mp3rgain_tpu", "jax")
+CODECS = ("libmpg123", "libavcodec", "libavutil", "libswresample", "libmp3lame")
 
 
 def _port_files() -> list[str]:
@@ -54,7 +56,9 @@ def test_scan_covers_the_port():
                  "decode/aac_frontend.py", "decode/aac_prep.py",
                  "decode/aac_synthesis.py", "decode/aac_format_tables.py",
                  "testing/craft_aac.py", "testing/make_smoke_data.py", "gui.py",
-                 "parallel/multihost.py", "parallel/dryrun.py", "testing/hostile.py"):
+                 "parallel/multihost.py", "parallel/dryrun.py", "testing/hostile.py",
+                 "testing/mpg123.py", "testing/avcodec.py", "testing/fixtures.py",
+                 "testing/reference.py", "testing/lazylib.py", "entry.py"):
         assert os.path.join(PORT, must) in files, must
 
 
@@ -88,12 +92,15 @@ for m in pkgutil.walk_packages({PORT}.__path__, "{PORT}."):
     names.append(m.name)
 import chip_smoke
 from {PORT} import _build, native
+with open("/proc/self/maps") as f:
+    maps = f.read()
 print(json.dumps({{
     "modules": names,
     "loaded": sorted(k for k in sys.modules
                      if k.split(".")[0] in {FORBIDDEN!r}),
     "host_library_loaded": native._lib._lib is not None,
     "kernel_library_loaded": _build._lib is not None,
+    "codec_libraries": sorted(n for n in {CODECS!r} if n in maps),
 }}))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -104,11 +111,14 @@ print(json.dumps({{
     assert f"{PORT}.decode.frontend" in got["modules"]
     assert f"{PORT}.tools.hk_dotprobe" in got["modules"]
     for name in ("aac", "decode.aac_frontend", "decode.aac_prep", "decode.aac_synthesis",
-                 "testing.craft_aac", "gui", "parallel.multihost", "parallel.dryrun"):
+                 "testing.craft_aac", "gui", "parallel.multihost", "parallel.dryrun",
+                 "testing.mpg123", "testing.avcodec", "testing.fixtures",
+                 "testing.reference", "entry"):
         assert f"{PORT}.{name}" in got["modules"], name
-    assert len(got["modules"]) >= 34
+    assert len(got["modules"]) >= 40
     assert got["loaded"] == []
     assert not got["host_library_loaded"] and not got["kernel_library_loaded"]
+    assert got["codec_libraries"] == []
 
 
 def test_fresh_interpreter_importing_multihost_loads_no_torch():
