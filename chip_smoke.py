@@ -54,7 +54,16 @@ committed M4A and ADTS track on the q route within 0.05 dB of the float64
 reference gain (testing/reference.py) of its PCM decoded on the CPU, peaks
 within rtol 2e-4; decode_file on the card against the CPU; the byte-surgery
 scale oracle (s more gain steps decode to the PCM times 2^(s/4)); the peak
-contract through the CLI on a clip whose peak exceeds 1.0; and entry().
+contract through the CLI on a clip whose peak exceeds 1.0; and entry();
+then the real_library phase, the input a real library holds against the
+same float64 reference: every MPEG class and every AAC rate tiled past the
+IIR's dense level-2 limit (so the doubling scan runs) on each of its
+routes, the 88.2 kHz degenerate rate on both sides, 4 min / 20 min / 2 h
+tracks through analyze_track_internal and scan_files (the 2 h MP3 a batch
+of one over the rows cap; the long ones held segment by segment), and a
+scan of 48 distinct real-length files with two 2 h batches among them,
+every track equal to its single-track run (testing/tile.py makes the long
+streams from the committed clips on this host).
 Every check raises on failure; there is no CPU branch.
 Output, one phase per line:
 
@@ -67,8 +76,10 @@ Output, one phase per line:
   routes, stages and entry points / library scan / per-track CLI walls /
   multi_runner / multihost / gui / oracle: one line per clip and route,
   decode_file, byte surgery, peak contract, entry(), the phase's wall /
-  times / a JSON line of per-kernel results (K1/K2 launches from the
-  library scan) /
+  real_library: one line per rate-matrix track and route, one per ladder
+  track, the library line, the phase's wall and launches / times / a
+  JSON line of per-kernel results (K1/K2 launches from the library scan,
+  and each kernel's launches in the real_library phase) /
   last line {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero
@@ -1631,6 +1642,511 @@ def oracle_phase(dev, card):
           flush=True)
 
 
+# --- the real_library phase: real track lengths and every sample rate -------------
+
+REAL_RATE_FACTOR = 1.2  # rate-matrix tracks: this many times the dense level-2 limit
+REAL_DEGENERATE_S = 63.0  # 88.2 kHz runs no solve at all: any length over 60 s
+# Copies of the 60 s bench clips (MP3, and the M4A's frames as ADTS): 4 min,
+# 20 min and 2 h. The first is held to the whole float64 reference, the
+# others segment by segment; the last is the batch of one over the rows cap.
+REAL_LADDER = {"4 min": 4, "20 min": 20, "2 h": 120}
+REAL_SEGMENT_S = 10.0
+REAL_WARMUP_S = 1.0  # the float64 filter starts this long before a segment
+REAL_SEGMENT_TOL = 1e-3  # max |card - float64| / segment peak at 44.1 kHz
+# The library: per short source, files of evenly spaced lengths in minutes.
+REAL_LIBRARY_MINUTES = (2.0, 12.0)
+REAL_LIBRARY_SOURCES = (("mp3", "transient", 12), ("mp3", "48k", 12), ("mp3", "mono", 12),
+                        ("aac", "bench", 6), ("aac", "48k", 6))
+REAL_POOL = 8  # reference worker processes (at most the host's cores)
+
+
+def _solve(n: int, limit_nb2: int) -> tuple[int, str]:
+    """(nb2, level-2 solve) the IIR runs on n padded samples."""
+    nb2 = -(-(-(-n // 128)) // 128)
+    return nb2, ("dense" if nb2 <= limit_nb2 else "doubling")
+
+
+def _degenerate_reference(pcm, sr: int) -> tuple[float, int, int]:
+    """The float64 reference at a rate whose filter diverges (88.2 kHz):
+    reference_gain's 50 ms windows, each binned as the JAX package bins
+    it (ops/histogram.bin_index: a NaN mean square lands in bin 2000, the
+    reference's `NaN as i32` cast), since Python's int() refuses NaN.
+    Returns (gain dB, NaN windows, windows)."""
+    import numpy as np
+    import torch
+
+    from mp3rgain_tpu_torch.ops import histogram as hi
+    from mp3rgain_tpu_torch.ops.iir import equal_loudness_scan
+    from mp3rgain_tpu_torch.replaygain import PINK_REF
+
+    x = np.asarray(pcm, dtype=np.float64)[:2] * 32768.0
+    w = hi.window_size(sr)
+    with np.errstate(all="ignore"):
+        filt = equal_loudness_scan(x, sr).numpy()
+        c, t = filt.shape
+        n_win = -(-t // w)
+        sq = np.pad(filt ** 2, ((0, 0), (0, n_win * w - t))).reshape(c, n_win, w).sum(-1)
+        lsum, rsum = sq[0], sq[1] if c == 2 else sq[0]
+        ms = (lsum + rsum) / np.minimum(w, t - np.arange(n_win) * w) * 0.5
+        val = torch.from_numpy(100 * 10 * np.log10(ms + 1e-37))
+    idx = hi.bin_index(val).numpy()
+    hist = np.bincount(idx[(idx >= 0) & (idx < hi.HISTOGRAM_SIZE)],
+                       minlength=hi.HISTOGRAM_SIZE)
+    return PINK_REF - hi.loudness_from_histogram(hist), int(np.isnan(ms).sum()), n_win
+
+
+def _real_reference(kind: str, path: str) -> dict:
+    """In a worker process: the port's CPU decode of `path` (MP3: the
+    host decoder's PCM; AAC: the q route's own PCM, whose PNS noise is
+    the route's) and the float64 reference gain and peak of it."""
+    import torch
+
+    torch.set_num_threads(1)
+    from mp3rgain_tpu_torch.ops.coeffs import DEGENERATE_RATES
+    from mp3rgain_tpu_torch.testing.reference import reference_gain, reference_peak
+
+    t0 = time.perf_counter()
+    if kind == "mp3":
+        from mp3rgain_tpu_torch.decode import synthesis as syn
+
+        pcm, sr = syn.decode_file(path, device="cpu")
+    else:
+        from mp3rgain_tpu_torch import aac
+
+        pcm, sr = aac.decode_file_q(path, None, device="cpu")
+    out = {"sr": sr, "channels": pcm.shape[0], "samples": pcm.shape[-1],
+           "peak": reference_peak(pcm)}
+    if sr in DEGENERATE_RATES:
+        out["gain"], out["nan_windows"], out["windows"] = _degenerate_reference(pcm, sr)
+    else:
+        out["gain"] = reference_gain(pcm, sr)
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def real_library_phase(dev, card):
+    """The port on the input a real library holds, against the float64
+    reference (testing/reference.py):
+
+    (a) the rate matrix: each of the 12 standard MP3 fixture classes (every
+    MPEG rate; mono, stereo, joint stereo, VBR) tiled to 1.2x its rate's
+    dense level-2 limit, on the light route (K1, K2) and the host-decoded
+    route (K3), the unfused light tail equal to the latter exactly; an ADTS
+    clip at each of the 12 AAC rates tiled the same way (88.2 kHz to 63 s)
+    on the q route. Each within 0.05 dB of reference_gain and rtol 2e-4 of
+    reference_peak on the track's CPU decode; every track's IIR ran the
+    doubling scan (read from the padded length the filter was given), but
+    at 88.2 kHz, where both sides give the degenerate result;
+    (b) the length ladder: the 60 s bench MP3 and the bench M4A's frames
+    as ADTS at 4 min, 20 min and 2 h, each through analyze_track_internal
+    and scan_files (equal); 4 min against the whole reference; 20 min and
+    2 h by three 10 s segments of EqualLoudness on the card over the
+    card's decode, each against the float64 filter started 1 s before it;
+    the 2 h MP3 is a batch of one over the rows cap;
+    (c) a library of 48 distinct files of 2-12 min in five (rate,
+    channels) buckets, MP3 and AAC, with the 2 h MP3 and a symlink to it:
+    scan_files with a manifest, every track equal to its single-track run
+    (window count and loudness exact, peak rtol 2e-4; a window may change
+    bins, since cuBLAS rounds a batch of other rows differently).
+    The references decode and filter on the CPU in a pool of worker
+    processes while the card works. Returns the phase's K1/K2/K3 launches."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from mp3rgain_tpu_torch import aac, analysis, scan
+    from mp3rgain_tpu_torch.decode import aac_frontend as af
+    from mp3rgain_tpu_torch.decode import class_core as cc
+    from mp3rgain_tpu_torch.decode import entropy_kernel as ek
+    from mp3rgain_tpu_torch.decode import frontend as fe
+    from mp3rgain_tpu_torch.decode import hybrid_kernel as hk
+    from mp3rgain_tpu_torch.decode import synthesis as syn
+    from mp3rgain_tpu_torch.ops import iir
+    from mp3rgain_tpu_torch.ops.coeffs import DEGENERATE_RATES
+    from mp3rgain_tpu_torch.parallel import runner as pr
+    from mp3rgain_tpu_torch.replaygain import PINK_REF
+    from mp3rgain_tpu_torch.testing import make_smoke_data as smoke
+    from mp3rgain_tpu_torch.testing import tile
+
+    t_phase = time.perf_counter()
+    limit_nb2 = iir.NB2_DENSE_MAX
+    dense_limit = limit_nb2 * iir.L2 * iir.DEFAULT_BLOCK  # samples per channel
+    runner = pr.Runner(dev)
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    # The padded length each IIR call is given, read by a forward pre-hook
+    # on every EqualLoudness module (nothing in the package counts it).
+    seen: list[tuple[int, tuple, int]] = []
+
+    def on_iir(module, args):
+        if isinstance(module, iir.EqualLoudness):
+            seen.append((module.sample_rate, tuple(args[0].shape), id(module)))
+
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(on_iir)
+    worst = {"db": 0.0, "peak": 0.0, "seg": 0.0}
+    for c in (ek.COUNT, hk.COUNT, cc.COUNT):
+        c.reset()
+    root = tempfile.mkdtemp(prefix="mp3rgain-real-")
+    workers = max(1, min(REAL_POOL, os.cpu_count() or 1))
+    pool = ProcessPoolExecutor(max_workers=workers,
+                               mp_context=multiprocessing.get_context("spawn"))
+    try:
+        # --- the inputs: tiled on this host, nothing of it timed ---------------
+        t0 = time.perf_counter()
+        matrix = []  # (kind, label, path, layout, copies)
+        for src in smoke.standard_paths():
+            data = read(src)
+            layout = tile.mp3_layout(data)
+            copies = tile.copies_for(layout, int(REAL_RATE_FACTOR * dense_limit))
+            path = os.path.join(root, "rate_" + os.path.basename(src))
+            tile.tile_mp3(data, path, copies)
+            matrix.append(("mp3", os.path.basename(src), path, layout, copies))
+        bench_adts = af.mp4_to_adts(read(os.path.join(smoke.DATA_DIR, smoke.AAC_BENCH_TRACK)))
+        aac_srcs = [(smoke.adts_rate_name(sr, ch), read(os.path.join(smoke.ADTS_DIR,
+                                                                     smoke.adts_rate_name(sr, ch))))
+                    for sr, ch, _ in smoke.ADTS_RATES]
+        aac_srcs += [(smoke.AAC_TRANSIENT_TRACK + " as ADTS", af.mp4_to_adts(
+            read(os.path.join(smoke.DATA_DIR, smoke.AAC_TRANSIENT_TRACK)))),
+                     (smoke.AAC_ADTS_TRACK, read(os.path.join(smoke.DATA_DIR,
+                                                              smoke.AAC_ADTS_TRACK)))]
+        for label, data in sorted(aac_srcs, key=lambda s: tile.adts_layout(s[1]).sample_rate):
+            layout = tile.adts_layout(data)
+            want = (int(REAL_DEGENERATE_S * layout.sample_rate)
+                    if layout.sample_rate in DEGENERATE_RATES
+                    else int(REAL_RATE_FACTOR * dense_limit))
+            copies = tile.copies_for(layout, want)
+            path = os.path.join(root, f"rate_{layout.sample_rate}_{layout.channels}ch.aac")
+            tile.tile_adts(data, path, copies)
+            matrix.append(("aac", label, path, layout, copies))
+        bench_mp3 = read(os.path.join(smoke.DATA_DIR, smoke.BENCH_TRACK))
+        ladder = []  # (kind, label, path, layout, copies)
+        for label, copies in REAL_LADDER.items():
+            for kind, data, ext in (("mp3", bench_mp3, "mp3"), ("aac", bench_adts, "aac")):
+                path = os.path.join(root, f"ladder_{copies}.{ext}")
+                layout = (tile.tile_mp3 if kind == "mp3" else tile.tile_adts)(data, path, copies)
+                ladder.append((kind, label, path, layout, copies))
+        tile_s = time.perf_counter() - t0
+
+        # The references: worker processes decode on the CPU and filter in
+        # float64 while the card works; the longest first.
+        jobs = [(k, p) for k, _, p, _, _ in matrix]
+        jobs += [(k, p) for k, label, p, _, _ in ladder if label == next(iter(REAL_LADDER))]
+        sizes = {p: os.path.getsize(p) for _, p in jobs}
+        futures = {p: pool.submit(_real_reference, k, p)
+                   for k, p in sorted(jobs, key=lambda j: -sizes[j[1]])}
+
+        def reference(path):
+            return futures[path].result()
+
+        def iir_call(want_sr):
+            calls = [s for s in seen if s[0] == want_sr]
+            check(len(calls) == 1, f"one IIR call at {want_sr} Hz, saw {seen}")
+            return calls[0][1]
+
+        def hold(line, gain, peak, ref, n_padded, sr):
+            diff = gain - ref["gain"]
+            rel = abs(peak / ref["peak"] - 1.0) if ref["peak"] else abs(peak)
+            nb2, solve = _solve(n_padded, limit_nb2)
+            if sr in DEGENERATE_RATES:
+                solve = "no solve: degenerate rate, the filter's output is all ones"
+            else:
+                check(solve == "doubling", f"{line}: the doubling scan ran (padded "
+                      f"{n_padded} samples, nb2 {nb2} > {limit_nb2})")
+            check(abs(diff) <= ORACLE_DB,
+                  f"{line}: card {gain:.4f} dB vs float64 reference {ref['gain']:.4f} dB")
+            check(rel <= ORACLE_PEAK_RTOL, f"{line}: card peak {peak:.6f} vs "
+                  f"reference {ref['peak']:.6f}")
+            worst["db"] = max(worst["db"], abs(diff))
+            worst["peak"] = max(worst["peak"], rel)
+            print(f"real_library {line}: {ref['sr']} Hz, {ref['channels']} ch, "
+                  f"{ref['samples'] / ref['sr']:.1f} s ({ref['samples']} samples), padded "
+                  f"{n_padded} samples, nb2 {nb2} ({solve}); card {gain:.4f} dB vs reference "
+                  f"{ref['gain']:.4f} dB (the CPU decode), diff {diff:+.4f} dB; peak "
+                  f"{peak:.6f} vs {ref['peak']:.6f} (rel {rel:.2e})", flush=True)
+
+        # --- (a) the rate matrix ----------------------------------------------------
+        for kind, label, path, layout, copies in matrix:
+            data = read(path)
+            sr = layout.sample_rate
+            what = f"rate {label} x{copies}"
+            if kind == "mp3":
+                light = fe.unpack_data_light_packed(data)
+                nch = light.n_channels
+                seen.clear()
+                _, louds, peaks = runner.analyze_unpacked_light([light], sr, nch)
+                n_light = iir_call(sr)[-1]
+                full = fe.unpack_data(data)
+                seen.clear()
+                h_hist, h_louds, h_peaks = runner.analyze_unpacked([full], sr, nch)
+                n_heavy = iir_call(sr)[-1]
+                prep, rest, g_lt = pr.prepare_batch_arrays_light([light], nch)
+                batch = [pr._to_device(a, dev)
+                         for a in (prep.scalars, prep.buf, prep.meta, prep.inv, *rest)]
+                lt = pr.analysis_core_light(runner.tail(sr, nch), *batch, nb=prep.nb,
+                                            g_max=g_lt, fused=False)
+                del batch
+                h_idx = np.array([round(v * 100) + 2000 for v in h_louds])
+                for a, b, name in zip(lt, (h_hist, h_idx, h_peaks),
+                                      ("hist", "loud_idx", "peak")):
+                    a = a[:1].cpu().numpy()
+                    check(a.shape == b.shape and bool((a == b).all()),
+                          f"{what}: light_tail(fused=False) {name} equals the heavy route")
+                ref = reference(path)
+                check(ref["samples"] == copies * layout.samples,
+                      f"{what}: {ref['samples']} decoded samples, {copies} copies")
+                hold(f"{what} light route", PINK_REF - float(louds[0]), float(peaks[0]),
+                     ref, n_light, sr)
+                hold(f"{what} heavy route (light unfused == heavy)",
+                     PINK_REF - float(h_louds[0]), float(h_peaks[0]), ref, n_heavy, sr)
+            else:
+                seen.clear()
+                r = aac.analyze_track_internal(path, None, device=dev, runner=runner,
+                                               device_prep=True)
+                n_q = iir_call(sr)[-1]
+                ref = reference(path)
+                if sr in DEGENERATE_RATES:
+                    windows = int(r.histogram.sum())
+                    check(r.result.loudness_db == 0.0 and int(r.histogram[2000]) == windows
+                          and windows == ref["windows"] and r.result.gain_db == PINK_REF,
+                          f"{what}: every window in bin 2000 on the card ({windows} of "
+                          f"{ref['windows']}), loudness {r.result.loudness_db}")
+                    check(ref["nan_windows"] >= ref["windows"] - 1,
+                          f"{what}: the float64 filter diverges ({ref['nan_windows']} NaN "
+                          f"windows of {ref['windows']})")
+                    print(f"real_library {what}: degenerate on both sides, as the JAX "
+                          f"package gives it: the card files all {windows} windows in bin "
+                          f"2000 (loudness 0.00 dB); the float64 filter diverges, "
+                          f"{ref['nan_windows']} of {ref['windows']} windows NaN, binned "
+                          f"as the JAX package bins them", flush=True)
+                hold(f"{what} q route", r.result.gain_db, r.result.peak, ref, n_q, sr)
+        check(len(matrix) == 24, f"12 MPEG classes and 12 AAC rates ({len(matrix)})")
+
+        # --- (b) the length ladder ----------------------------------------------------
+        longest = list(REAL_LADDER)[-1]
+        singles = {}  # path -> (histogram, loudness, gain, peak)
+        for kind, label, path, layout, copies in ladder:
+            sr = layout.sample_rate
+            what = f"ladder {label} {'MP3' if kind == 'mp3' else 'ADTS'} (x{copies})"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            seen.clear()
+            t0 = time.perf_counter()
+            one = analysis.analyze_track_internal(path, device=dev, runner=runner)
+            one_s = time.perf_counter() - t0
+            mem_gb = torch.cuda.max_memory_allocated() / 1e9
+            shape = iir_call(sr)
+            res = scan.scan_files([path], runner=runner)
+            got = res.results[path]
+            check(not isinstance(got, Exception), f"{what}: scan_files ({got!r})")
+            check((one.result.loudness_db, one.result.gain_db, one.result.peak)
+                  == (got.loudness_db, got.gain_db, got.peak)
+                  and np.array_equal(one.histogram, res.histograms[path]),
+                  f"{what}: analyze_track_internal equals scan_files")
+            singles[path] = (one.histogram, one.result.loudness_db, one.result.gain_db,
+                             one.result.peak)
+            rows_per = 576 if kind == "mp3" else 1024
+            padded_rows = shape[0] * shape[1] // rows_per
+            n_padded = shape[-1]
+            if kind == "mp3":
+                rows = layout.frames * copies * (2 if layout.samples_per_frame == 1152 else 1)
+                rows *= layout.channels
+                size = (f"{rows} granule-channels ({rows / 640_000:.2f}x the 640,000-row "
+                        f"cap), {padded_rows} padded rows")
+            else:
+                rows = layout.frames * copies * layout.channels
+                size = (f"{rows} frame-channel lanes ({rows / pr.AAC_ROWS_CAP:.2f}x the "
+                        f"AAC_ROWS_CAP), {padded_rows} padded lanes")
+            nb2, solve = _solve(n_padded, limit_nb2)
+            line = (f"{what}: analyze_track_internal == scan_files ({one.result.gain_db:.2f} "
+                    f"dB, {int(one.histogram.sum())} windows, peak {one.result.peak:.6f}); "
+                    f"{size}, padded {n_padded} samples, nb2 {nb2} ({solve}); "
+                    f"analyze_track_internal {one_s:.2f} s, peak device memory {mem_gb:.2f} GB")
+            check(solve == "doubling", f"{what}: the doubling scan ran")
+            if (kind, path) in jobs:
+                ref = reference(path)
+                hold(f"{what} whole track", one.result.gain_db, one.result.peak, ref,
+                     n_padded, sr)
+                print(f"real_library {line}", flush=True)
+                continue
+            # Segments: EqualLoudness on the card over the card's decode,
+            # against the float64 filter started REAL_WARMUP_S before each.
+            t0 = time.perf_counter()
+            if kind == "mp3":
+                pcm, sr_d = syn.decode_file(path, device=dev)
+            else:
+                pcm, sr_d = aac.decode_file_q(path, None, device=dev, runner=runner)
+            decode_s = time.perf_counter() - t0
+            check(sr_d == sr and pcm.shape[0] == layout.channels
+                  and bool(np.isfinite(pcm).all()), f"{what}: card decode")
+            x = torch.from_numpy(pcm).to(dev) * 32768.0
+            eq = iir.EqualLoudness(sr).to(dev)
+            y = eq(x)
+            del x, eq
+            t = pcm.shape[-1]
+            seg, warm = int(REAL_SEGMENT_S * sr), int(REAL_WARMUP_S * sr)
+            errs = []
+            for start in (0, (t - seg) // 2, t - seg):
+                lo = max(0, start - warm)
+                want = iir.equal_loudness_scan(
+                    pcm[:, lo:start + seg].astype(np.float64) * 32768.0, sr).numpy()
+                want = want[:, start - lo:]
+                card_seg = y[:, start:start + seg].cpu().numpy().astype(np.float64)
+                err = float(np.abs(card_seg - want).max() / np.abs(want).max())
+                check(err <= REAL_SEGMENT_TOL, f"{what}: segment at {start / sr:.0f} s, "
+                      f"max|card - float64| {err:.2e} of its peak > {REAL_SEGMENT_TOL}")
+                errs.append(f"{start / sr:.0f} s {err:.2e}")
+                worst["seg"] = max(worst["seg"], err)
+            del y
+            torch.cuda.empty_cache()
+            print(f"real_library {line}; EqualLoudness on the card over the card's decode "
+                  f"({decode_s:.1f} s, {t} samples) vs the float64 filter started "
+                  f"{REAL_WARMUP_S:.0f} s before each {REAL_SEGMENT_S:.0f} s segment, "
+                  f"max|err| / segment peak: {'; '.join(errs)} (limit {REAL_SEGMENT_TOL}; "
+                  f"1.2-2.0e-4 on a CPU for float32 at 44.1 kHz)", flush=True)
+
+        # --- (c) a library at real lengths ----------------------------------------------
+        sources = {
+            ("mp3", "transient"): read(os.path.join(smoke.DATA_DIR, smoke.TRANSIENT_TRACK)),
+            ("mp3", "48k"): read(os.path.join(smoke.STANDARD_DIR, "test_48000.mp3")),
+            ("mp3", "mono"): read(os.path.join(smoke.DATA_DIR, smoke.MONO_TRACK)),
+            ("aac", "bench"): bench_adts,
+            ("aac", "48k"): read(os.path.join(smoke.ADTS_DIR,
+                                              smoke.adts_rate_name(48000, 2))),
+        }
+        lib_dir = os.path.join(root, "library")
+        os.makedirs(lib_dir)
+        lib = []
+        lo_min, hi_min = REAL_LIBRARY_MINUTES
+        for kind, name, count in REAL_LIBRARY_SOURCES:
+            data = sources[(kind, name)]
+            layout = (tile.mp3_layout if kind == "mp3" else tile.adts_layout)(data)
+            made = set()
+            for i in range(count):
+                minutes = lo_min + (hi_min - lo_min) * i / max(count - 1, 1)
+                copies = max(1, round(minutes * 60 * layout.sample_rate / layout.samples))
+                check(copies not in made, f"library {kind} {name}: distinct lengths")
+                made.add(copies)
+                path = os.path.join(lib_dir, f"{kind}_{name}_{copies}.{kind}")
+                (tile.tile_mp3 if kind == "mp3" else tile.tile_adts)(data, path, copies)
+                lib.append(path)
+        long_mp3 = next(p for k, label, p, _, _ in ladder if k == "mp3" and label == longest)
+        long_link = os.path.join(lib_dir, "long_link.mp3")
+        os.symlink(long_mp3, long_link)
+        singles[long_link] = singles[long_mp3]
+        paths = lib + [long_mp3, long_link]
+        for p in lib:
+            r = analysis.analyze_track_internal(p, device=dev, runner=runner)
+            singles[p] = (r.histogram, r.result.loudness_db, r.result.gain_db, r.result.peak)
+
+        retryable = pr._retryable
+        halved = []
+
+        def counting(e):
+            if retryable(e):
+                halved.append(repr(e)[:160])
+                return True
+            return False
+
+        n_busy = len(runner.busy_ms)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seen.clear()
+        pr._retryable = counting
+        try:
+            t0 = time.perf_counter()
+            res = scan.scan_files(paths, manifest_path=os.path.join(root, "scan.json"),
+                                  runner=runner)
+            wall = time.perf_counter() - t0
+        finally:
+            pr._retryable = retryable
+        lib_mem = torch.cuda.max_memory_allocated() / 1e9
+        busy = list(runner.busy_ms)[n_busy:]
+        calls = list(seen)
+        worst_lib = 0.0
+        differ: dict[str, int] = {}  # tracks whose histogram is not bit-equal, by type
+        moved = 0
+        for p in paths:
+            got = res.results[p]
+            check(not isinstance(got, Exception), f"library {p}: {got!r}")
+            hist, loud, gain, peak = singles[p]
+            check(int(res.histograms[p].sum()) == int(hist.sum())
+                  and (got.loudness_db, got.gain_db) == (loud, gain),
+                  f"library {p}: windows and loudness equal the single-track run "
+                  f"({int(res.histograms[p].sum())} vs {int(hist.sum())} windows, "
+                  f"{got.loudness_db} vs {loud} dB)")
+            check(bool(np.isclose(got.peak, peak, rtol=ORACLE_PEAK_RTOL, atol=0)),
+                  f"library {p}: peak {got.peak} vs {peak}")
+            worst_lib = max(worst_lib, abs(got.peak / peak - 1) if peak else 0.0)
+            diff = np.abs(res.histograms[p].astype(np.int64) - hist.astype(np.int64))
+            if diff.any():
+                kind = os.path.splitext(p)[1][1:].upper()
+                differ[kind] = differ.get(kind, 0) + 1
+            moved = max(moved, int(diff.sum()) // 2)
+        # Batches per bucket, from the IIR calls of the scan.
+        owner = {}
+        for (sr, nch), t in runner._tails.items():
+            owner[id(t.iir)] = ("MP3", sr, nch)
+        for (sr, nch), t in runner._aac_tails.items():
+            owner[id(t.iir)] = ("AAC", sr, nch)
+        per_bucket: dict = {}
+        biggest = (0, None)
+        for sr, shape, mid in calls:
+            key = owner[mid]
+            per_bucket[key] = per_bucket.get(key, 0) + 1
+            rows = shape[0] * shape[1] // (576 if key[0] == "MP3" else 1024)
+            biggest = max(biggest, (rows, key))
+        buckets = "; ".join(f"{c} {s / 1000:g} kHz {n} ch: {k}"
+                            for (c, s, n), k in sorted(per_bucket.items()))
+        check(len(per_bucket) >= 4 and {c for c, _, _ in per_bucket} == {"MP3", "AAC"},
+              f"at least four buckets, MP3 and AAC: {per_bucket}")
+        entries = [(key, v) for tails in (runner._tails, runner._aac_tails)
+                   for tl in tails.values() for key, v in tl.iir._t3m.items()]
+        t3m_mb = sum(v.numel() * v.element_size() for _, v in entries) / 1e6
+        audio_h = res.audio_seconds / 3600.0
+        print(f"real_library library {card}: scan_files over {len(paths)} files ({len(lib)} "
+              f"distinct tiled files of {lo_min:g}-{hi_min:g} min, the {longest} MP3 and a "
+              f"symlink to it), {len(calls)} device batches ({buckets}), largest batch "
+              f"{biggest[0]} padded rows ({biggest[1][0]} {biggest[1][1] / 1000:g} kHz); "
+              f"{audio_h:.3f} audio-hours in {wall:.3f} s ({res.audio_seconds / wall:.0f}x "
+              f"real time); device busy {_union_ms(busy) / (wall * 1e3):.1%} of the wall; "
+              f"peak device memory {lib_mem:.2f} GB; batches halved on OOM: "
+              f"{len(halved)}{' (' + '; '.join(halved) + ')' if halved else ''}; every "
+              f"track equals its single-track run (window counts and loudness exact, max "
+              f"peak rel diff {worst_lib:.2e}; histograms not bit-equal: "
+              f"{sum(differ.values())} of {len(paths)}{f' {differ}' if differ else ''}, at most {moved} "
+              f"windows in another bin); dense level-2 operators cached in the Runner: "
+              f"{len(entries)} entries, {t3m_mb:.1f} MB", flush=True)
+    finally:
+        hook.remove()
+        pool.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(root, ignore_errors=True)
+
+    launches = {"entropy_decode_rows": ek.COUNT.kernel, "requant_stereo": hk.COUNT.kernel,
+                "class_core_gemm": cc.COUNT.kernel}
+    plain = ek.COUNT.plain + hk.COUNT.plain + cc.COUNT.plain
+    check(all(v >= 1 for v in launches.values()) and plain == 0,
+          f"real_library: K1, K2 and K3 launched ({launches}), no plain call ({plain})")
+    del runner
+    torch.cuda.empty_cache()
+    ref_s = [f.result()["s"] for f in futures.values()]
+    print(f"real_library phase {card}: wall {time.perf_counter() - t_phase:.1f} s (tiling "
+          f"{tile_s:.1f} s; {len(ref_s)} references decoded and filtered on the CPU by "
+          f"{workers} worker processes, {sum(ref_s):.1f} s of work, "
+          f"{max(ref_s):.1f} s the longest); "
+          f"{len(matrix)} rate-matrix tracks and the 4 min tracks within {worst['db']:.4f} dB "
+          f"(budget {ORACLE_DB}) and peak rel {worst['peak']:.2e} (rtol {ORACLE_PEAK_RTOL}) "
+          f"of the float64 reference; segments within {worst['seg']:.2e} of their peak "
+          f"(limit {REAL_SEGMENT_TOL}); launches {launches}", flush=True)
+    return launches
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2104,7 +2620,10 @@ def main() -> None:
     # --- 13. the card against the float64 reference, the oracles, entry() ----------
     oracle_phase(dev, card)
 
-    # --- 14. times ---------------------------------------------------------------
+    # --- 14. real track lengths and every sample rate against the reference ---------
+    real = real_library_phase(dev, card)
+
+    # --- 15. times ---------------------------------------------------------------
     dev_s = timing["device_ms"] / 1e3
     h_dev_s = h_timing["device_ms"] / 1e3
     split = timing["prep_s"] + timing["h2d_s"] + dev_s
@@ -2131,14 +2650,16 @@ def main() -> None:
          "source": "mp3rgain_tpu_torch/csrc/entropy_decode.cu",
          "replaces": "mp3rgain_tpu/decode/entropy_kernel.py:154",
          "launches": lib["launches"]["entropy_decode_rows"],
-         "light_slice_launches": counts["entropy_decode_rows"], "max_abs_err": k1_err,
+         "light_slice_launches": counts["entropy_decode_rows"],
+         "real_library_launches": real["entropy_decode_rows"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None},
         {"name": "requant_stereo", "route": "cuda",
          "source": "mp3rgain_tpu_torch/csrc/requant_stereo.cu",
          "replaces": "mp3rgain_tpu/decode/hybrid_kernel.py:163",
          "launches": lib["launches"]["requant_stereo"],
-         "light_slice_launches": counts["requant_stereo"], "max_abs_err": k2_err,
+         "light_slice_launches": counts["requant_stereo"],
+         "real_library_launches": real["requant_stereo"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None},
         {"name": "class_core_gemm", "route": "cuda",
@@ -2146,6 +2667,7 @@ def main() -> None:
          "replaces": "tools/hk_dotprobe.py:22",
          "launches": h_counts["class_core_gemm"],
          "dryrun_multichip_launches": multi["class_core_gemm_dryrun"],
+         "real_library_launches": real["class_core_gemm"],
          "max_abs_err": max(k3_err, k3p_err),
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3h_bound[0],
          "bound_by": k3h_bound[1], "library_ms": k3_lib_ms,

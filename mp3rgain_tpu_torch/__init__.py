@@ -32,6 +32,85 @@ MP3RGAIN_NUM_PROCESSES and MP3RGAIN_PROCESS_ID), whose album union every
 process of an album command joins; parallel.dryrun checks both. python -m
 mp3rgain_tpu_torch.tools.hk_dotprobe times K3, and
 mp3rgain_tpu_torch.tools.host_probe the scan's host side.
+
+The package root re-exports the reference library's API from bitstream
+and ape (analyze, apply_gain*, undo_gain, find_max_amplitude, the APEv2
+tag functions and TAG_* keys), the same names as mp3rgain_tpu's root, and
+parallel exports BatchResult, Runner, RunnerGroup and analyze_library.
+Neither import loads torch.
 """
 
+from .bitstream import (
+    GAIN_STEP_DB,
+    MAX_GAIN,
+    MIN_GAIN,
+    Channel,
+    Mp3Analysis,
+    Mp3Error,
+    analyze,
+    analyze_data,
+    apply_gain,
+    apply_gain_channel,
+    apply_gain_channel_with_undo,
+    apply_gain_db,
+    apply_gain_with_undo,
+    apply_gain_with_undo_wrap,
+    apply_gain_wrap,
+    db_to_steps,
+    find_max_amplitude,
+    is_mono,
+    steps_to_db,
+    undo_gain,
+)
+from .ape import (
+    ApeTag,
+    TAG_MP3GAIN_ALBUM_MINMAX,
+    TAG_MP3GAIN_MINMAX,
+    TAG_MP3GAIN_UNDO,
+    TAG_REPLAYGAIN_ALBUM_GAIN,
+    TAG_REPLAYGAIN_ALBUM_PEAK,
+    TAG_REPLAYGAIN_TRACK_GAIN,
+    TAG_REPLAYGAIN_TRACK_PEAK,
+    delete_ape_tag,
+    read_ape_tag,
+    read_ape_tag_from_file,
+    write_ape_tag,
+)
+
 __version__ = "0.1.0"
+
+__all__ = [
+    "GAIN_STEP_DB",
+    "MAX_GAIN",
+    "MIN_GAIN",
+    "Channel",
+    "Mp3Analysis",
+    "Mp3Error",
+    "ApeTag",
+    "analyze",
+    "analyze_data",
+    "apply_gain",
+    "apply_gain_channel",
+    "apply_gain_channel_with_undo",
+    "apply_gain_db",
+    "apply_gain_with_undo",
+    "apply_gain_with_undo_wrap",
+    "apply_gain_wrap",
+    "db_to_steps",
+    "delete_ape_tag",
+    "find_max_amplitude",
+    "is_mono",
+    "read_ape_tag",
+    "read_ape_tag_from_file",
+    "steps_to_db",
+    "undo_gain",
+    "write_ape_tag",
+    "TAG_MP3GAIN_UNDO",
+    "TAG_MP3GAIN_MINMAX",
+    "TAG_MP3GAIN_ALBUM_MINMAX",
+    "TAG_REPLAYGAIN_TRACK_GAIN",
+    "TAG_REPLAYGAIN_TRACK_PEAK",
+    "TAG_REPLAYGAIN_ALBUM_GAIN",
+    "TAG_REPLAYGAIN_ALBUM_PEAK",
+    "__version__",
+]

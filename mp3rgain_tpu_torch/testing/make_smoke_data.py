@@ -32,6 +32,13 @@ which load each library on first use, deterministically from fixed seeds:
                                 burst, the peak contract's clip
                                 (tests/test_peak_contract.py::_burst_pcm);
                                 +4 gain steps take its peak above 1.0
+  standard/*.mp3                the JAX package's 12 standard fixtures
+                                (fixtures.generate_standard_fixtures):
+                                1 s 440 Hz sines at every MPEG rate, mono,
+                                stereo, joint stereo and VBR (122 KB)
+  adts/*.aac                    3 s ADTS clips at the ten AAC rates the
+                                clips above lack (adts_rate_clips), tones
+                                over noise, mono and stereo (290 KB)
 
 Run: python -m mp3rgain_tpu_torch.testing.make_smoke_data
 """
@@ -39,14 +46,18 @@ Run: python -m mp3rgain_tpu_torch.testing.make_smoke_data
 from __future__ import annotations
 
 import os
+import shutil
+import tempfile
 
 import numpy as np
 
 from .avcodec import encode_adts
 from .fixtures import (MODE_JOINT, MODE_MONO, MODE_STEREO, encode_m4a, encode_m4a_multi,
-                       encode_mp3)
+                       encode_mp3, generate_standard_fixtures)
 
 DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+STANDARD_DIR = os.path.join(DATA_DIR, "standard")
+ADTS_DIR = os.path.join(DATA_DIR, "adts")
 
 BENCH_TRACK = "bench_60s_44k_joint_192k.mp3"
 MONO_TRACK = "mono_3s_22k_48k.mp3"
@@ -137,6 +148,42 @@ def tone_pcm(freq: float, seconds: int, sr: int, channels: int) -> np.ndarray:
     return wave if channels == 1 else np.stack([wave, np.roll(wave, 5)], axis=1)
 
 
+# (sample rate, channels, bitrate) of the ADTS clips at the AAC rates the
+# other clips lack: every ADTS sampling-frequency index but 44.1 and 22.05 kHz.
+ADTS_RATES = ((8000, 1, 16000), (11025, 2, 32000), (12000, 1, 24000),
+              (16000, 2, 48000), (24000, 1, 48000), (32000, 2, 96000),
+              (48000, 2, 128000), (64000, 1, 96000), (88200, 2, 128000),
+              (96000, 2, 128000))
+
+
+def adts_rate_name(sr: int, channels: int) -> str:
+    return f"rate_{sr}_{'mono' if channels == 1 else 'stereo'}.aac"
+
+
+def rate_pcm(sr: int, channels: int, seconds: int = 3) -> np.ndarray:
+    """A 440 Hz tone, a second tone at min(3 kHz, sr/5) and noise (seeded
+    by the rate), (n,) or (n, 2) float32."""
+    rng = np.random.default_rng(sr)
+    t = np.arange(sr * seconds) / sr
+    wave = 0.3 * np.sin(2 * np.pi * 440.0 * t)
+    wave += 0.1 * np.sin(2 * np.pi * min(3000.0, sr / 5) * t)
+    wave += 0.05 * rng.standard_normal(len(t))
+    wave = wave.astype(np.float32)
+    return wave if channels == 1 else np.stack([wave, np.roll(wave, 9)], axis=1)
+
+
+def adts_rate_clips() -> list[tuple[str, bytes]]:
+    """(name, bytes) of every ADTS rate clip, encoded now."""
+    return [(adts_rate_name(sr, ch), encode_adts(rate_pcm(sr, ch), sr, bitrate=br))
+            for sr, ch, br in ADTS_RATES]
+
+
+def standard_paths() -> list[str]:
+    """The committed standard fixtures, sorted by name."""
+    return [os.path.join(STANDARD_DIR, n) for n in sorted(os.listdir(STANDARD_DIR))
+            if n.endswith(".mp3")]
+
+
 def aac_tracks() -> list[tuple[str, bytes]]:
     """(name, bytes) of every AAC clip, encoded now."""
     return [
@@ -170,6 +217,20 @@ def main(out_dir: str = DATA_DIR) -> list[str]:
         paths.append(path)
     for name, data in aac_tracks():
         path = os.path.join(out_dir, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        paths.append(path)
+    # generate_standard_fixtures keeps files that exist: encode afresh.
+    standard = os.path.join(out_dir, "standard")
+    os.makedirs(standard, exist_ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in sorted(os.listdir(generate_standard_fixtures(tmp))):
+            shutil.copyfile(os.path.join(tmp, name), os.path.join(standard, name))
+            paths.append(os.path.join(standard, name))
+    adts = os.path.join(out_dir, "adts")
+    os.makedirs(adts, exist_ok=True)
+    for name, data in adts_rate_clips():
+        path = os.path.join(adts, name)
         with open(path, "wb") as f:
             f.write(data)
         paths.append(path)

@@ -581,6 +581,37 @@ def test_committed_aac_clips_are_what_the_generator_encodes():
         assert _clip(name) == data, name
 
 
+def _require(*names: str) -> None:
+    """Skip unless the codec libraries that encode the clips load."""
+    import ctypes
+
+    try:
+        for name in names:
+            ctypes.CDLL(name, mode=ctypes.RTLD_GLOBAL)
+    except OSError as e:
+        pytest.skip(f"no {name} to encode with ({e})")
+
+
+def test_committed_standard_fixtures_are_what_the_generator_encodes(tmp_path):
+    """testing/data/standard/ holds generate_standard_fixtures' 12 files."""
+    _require("libmp3lame.so.0")
+    fresh = tfixtures.generate_standard_fixtures(tmp_path)
+    committed = smoke.standard_paths()
+    assert [os.path.basename(p) for p in committed] == sorted(os.listdir(fresh))
+    for p in committed:
+        with open(p, "rb") as f:
+            assert f.read() == (fresh / os.path.basename(p)).read_bytes(), p
+
+
+def test_committed_adts_rate_clips_are_what_the_generator_encodes():
+    _require("libavutil.so.57", "libswresample.so.4", "libavcodec.so.59")
+    clips = smoke.adts_rate_clips()
+    assert sorted(os.listdir(smoke.ADTS_DIR)) == sorted(name for name, _ in clips)
+    for name, data in clips:
+        with open(os.path.join(smoke.ADTS_DIR, name), "rb") as f:
+            assert f.read() == data, name
+
+
 def test_crc_protection_byte_identical():
     frame = craft.craft_joint_stereo_frame(1, [0] * 10, [11, 12])
     assert frame == jcraft.craft_joint_stereo_frame(1, [0] * 10, [11, 12])
