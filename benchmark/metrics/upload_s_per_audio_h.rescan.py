@@ -1,0 +1,10 @@
+"""upload_s_per_audio_h.rescan: the Runner's upload seconds (h2d_s: pinned
+staging and the host-to-device copy, host clock) of the batches collected
+in the window, per audio-hour those batches analysed."""
+
+
+def read(rec):
+    t, a = rec.get("timings"), rec.get("analysed")
+    if not t or not a or not a["audio_s"]:
+        return None
+    return sum(x["h2d_s"] for x in t) / (a["audio_s"] / 3600.0)
