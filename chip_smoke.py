@@ -109,6 +109,39 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 
 
+class Launches:
+    """One kernel's counts in the tracing record (the script runs inside
+    tracing.recording(), where the counters count): `kernel` launches of
+    the hand-written kernel and `plain` calls of its plain version, since
+    the last reset()."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._base = (0, 0)
+
+    def _now(self) -> tuple[int, int]:
+        from mp3rgain_tpu_torch import tracing
+
+        return (tracing.counter("launches." + self.name),
+                tracing.counter("plain." + self.name))
+
+    @property
+    def kernel(self) -> int:
+        return self._now()[0] - self._base[0]
+
+    @property
+    def plain(self) -> int:
+        return self._now()[1] - self._base[1]
+
+    def reset(self) -> None:
+        self._base = self._now()
+
+
+K1 = Launches("entropy_decode_rows")
+K2 = Launches("requant_stereo")
+K3 = Launches("class_core_gemm")
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
@@ -230,7 +263,7 @@ def library_phase(dev, card, bench_u, bench_loud, bench_peak, bench_windows, cli
             first_done.setdefault(os.path.splitext(path)[1], time.perf_counter())
 
         torch.cuda.reset_peak_memory_stats()
-        for c in (ek.COUNT, hk.COUNT, cc.COUNT):
+        for c in (K1, K2, K3):
             c.reset()
         torch.cuda.set_sync_debug_mode("warn")
         try:
@@ -249,9 +282,9 @@ def library_phase(dev, card, bench_u, bench_loud, bench_peak, bench_windows, cli
                 control_seen = len(caught) > n_scan
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        launches = {"entropy_decode_rows": ek.COUNT.kernel,
-                    "requant_stereo": hk.COUNT.kernel}
-        plain = ek.COUNT.plain + hk.COUNT.plain + cc.COUNT.plain
+        launches = {"entropy_decode_rows": K1.kernel,
+                    "requant_stereo": K2.kernel}
+        plain = K1.plain + K2.plain + K3.plain
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         timings = list(runner.timings)
         busy = list(runner.busy_ms)
@@ -316,11 +349,11 @@ def library_phase(dev, card, bench_u, bench_loud, bench_peak, bench_windows, cli
 
         # The same scan again resumes every track from the manifest.
         n_before = len(runner.timings)
-        k1_before = ek.COUNT.kernel
+        k1_before = K1.kernel
         again = scan.scan_files(paths, manifest_path=manifest, runner=runner)
         check(again.resumed == n_tracks + 1,
               f"resumed {again.resumed} of {n_tracks + 1}, AAC records included")
-        check(len(runner.timings) == n_before and ek.COUNT.kernel == k1_before,
+        check(len(runner.timings) == n_before and K1.kernel == k1_before,
               "no device batch on resume")
         for p in ok:
             a, b = res.results[p], again.results[p]
@@ -826,12 +859,12 @@ def aac_phase(dev, card, runner, mp3_clip):
         aac.analyze_batch_q([uq] * BATCH_TRACKS, 44100, 2, runner=runner)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in (ek.COUNT, hk.COUNT, cc.COUNT):
+    for c in (K1, K2, K3):
         c.reset()
     t0 = time.perf_counter()
     hist, louds, peaks = aac.analyze_batch_q([uq] * BATCH_TRACKS, 44100, 2, runner=runner)
     wall_s = time.perf_counter() - t0
-    timing = runner.last_timings
+    timing = runner.timings[-1]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(timing["route"] == "aac_q", f"route {timing['route']}")
     check(hist.shape == (BATCH_TRACKS, 12000) and bool(np.isfinite(louds).all())
@@ -841,8 +874,8 @@ def aac_phase(dev, card, runner, mp3_clip):
           and int(np.abs(np.array([_index(v) for v in louds]) - _index(louds[0])).max()) <= 1
           and bool(np.allclose(peaks, peaks[0], rtol=1e-5)),
           "the 64 copies agree with each other")
-    check(ek.COUNT.kernel + hk.COUNT.kernel + cc.COUNT.kernel == 0
-          and ek.COUNT.plain + hk.COUNT.plain + cc.COUNT.plain == 0,
+    check(K1.kernel + K2.kernel + K3.kernel == 0
+          and K1.plain + K2.plain + K3.plain == 0,
           "the AAC path reaches none of K1, K2, K3 nor their plain versions")
     prepared = runner.prepare_aac_q([uq] * BATCH_TRACKS, 44100, 2)
     rows = prepared.arrays[0].shape[0] * prepared.arrays[0].shape[1]
@@ -852,7 +885,7 @@ def aac_phase(dev, card, runner, mp3_clip):
     for _ in range(2):
         f_hist, f_louds, f_peaks = aac.analyze_batch([uf] * BATCH_TRACKS, 44100, 2,
                                                      runner=runner)
-    f_timing = runner.last_timings
+    f_timing = runner.timings[-1]
     check(f_timing["route"] == "aac", f"route {f_timing['route']}")
     d_loud = float(np.abs(louds - f_louds).max())
     d_peak = float(np.abs(peaks / f_peaks - 1).max())
@@ -1066,7 +1099,7 @@ def multi_runner_phase(dev, card, bench_u, clips, aac_clips):
     from mp3rgain_tpu_torch.parallel import runner as pr
 
     bench_path, mono_path, transient_path = clips
-    counters = (ek.COUNT, hk.COUNT, cc.COUNT)
+    counters = (K1, K2, K3)
     one = [pr.Runner(dev)]
     two = [pr.Runner(dev), pr.Runner(dev)]
     for r in one + two:
@@ -1095,7 +1128,7 @@ def multi_runner_phase(dev, card, bench_u, clips, aac_clips):
             busy += [(x + off, y + off) for x, y in r.busy_ms]
         routes = [[t["route"] for t in r.timings] for r in runners]
         return {"mp3": mp3, "aac": a, "wall": wall, "busy": _union_ms(busy) / (wall * 1e3),
-                "routes": routes, "k1": ek.COUNT.kernel, "k2": hk.COUNT.kernel,
+                "routes": routes, "k1": K1.kernel, "k2": K2.kernel,
                 "plain": sum(c.plain for c in counters),
                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
@@ -1162,16 +1195,16 @@ def multi_runner_phase(dev, card, bench_u, clips, aac_clips):
             check(a.shape == b.shape and bool((a == b).all()),
                   f"sharded {label} dispatch: {what} equals the single dispatch exactly")
         want_k = (2 + 2 * 2) if label == "light" else 0  # single x2, two shards x2
-        check(ek.COUNT.kernel == want_k and hk.COUNT.kernel == want_k
+        check(K1.kernel == want_k and K2.kernel == want_k
               and sum(c.plain for c in counters) == 0,
-              f"sharded {label}: K1 {ek.COUNT.kernel}, K2 {hk.COUNT.kernel} launches")
+              f"sharded {label}: K1 {K1.kernel}, K2 {K2.kernel} launches")
         sharded[label] = walls
     for c in counters:
         c.reset()
     dryrun.dryrun_multichip(2, device=dev)
-    k3 = cc.COUNT.kernel
-    check(k3 > 0 and ek.COUNT.kernel >= 3 and sum(c.plain for c in counters) == 0,
-          f"dryrun_multichip(2) launched K3 {k3}, K1 {ek.COUNT.kernel} times, no plain call")
+    k3 = K3.kernel
+    check(k3 > 0 and K1.kernel >= 3 and sum(c.plain for c in counters) == 0,
+          f"dryrun_multichip(2) launched K3 {k3}, K1 {K1.kernel} times, no plain call")
 
     def fmt(n):
         picked = [run for k, run in runs if k == n]
@@ -1451,11 +1484,11 @@ def oracle_phase(dev, card):
         return os.path.join(smoke.DATA_DIR, name)
 
     def reset():
-        for c in (ek.COUNT, hk.COUNT, cc.COUNT):
+        for c in (K1, K2, K3):
             c.reset()
 
     def plain_calls():
-        return ek.COUNT.plain + hk.COUNT.plain + cc.COUNT.plain
+        return K1.plain + K2.plain + K3.plain
 
     def hold(what, gain, peak, ref_gain, ref_peak, pcm_of):
         diff = gain - ref_gain
@@ -1483,14 +1516,14 @@ def oracle_phase(dev, card):
         light = fe.unpack_data_light_packed(data)
         reset()
         _, louds, peaks = runner.analyze_unpacked_light([light], sr, light.n_channels)
-        check(ek.COUNT.kernel >= 1 and hk.COUNT.kernel >= 1 and plain_calls() == 0,
+        check(K1.kernel >= 1 and K2.kernel >= 1 and plain_calls() == 0,
               f"{name}: light route launched K1 and K2, no plain call")
         hold(f"{name} light route", PINK_REF - float(louds[0]), float(peaks[0]),
              ref_g, ref_p, "CPU decode")
         full = fe.unpack_data(data)
         reset()
         _, louds, peaks = runner.analyze_unpacked([full], sr, full.n_channels)
-        check(cc.COUNT.kernel >= 1 and plain_calls() == 0,
+        check(K3.kernel >= 1 and plain_calls() == 0,
               f"{name}: heavy route launched K3, no plain call")
         hold(f"{name} heavy route", PINK_REF - float(louds[0]), float(peaks[0]),
              ref_g, ref_p, "CPU decode")
@@ -1619,7 +1652,7 @@ def oracle_phase(dev, card):
     fn, args = entry_mod.entry(dev)
     reset()
     hist, idx, pk = (t.cpu().numpy() for t in fn(*args))
-    k3, plain = cc.COUNT.kernel, plain_calls()
+    k3, plain = K3.kernel, plain_calls()
     check(k3 >= 1 and plain == 0, f"entry(): K3 launches {k3}, plain calls {plain}")
     c_fn, c_args = entry_mod.entry("cpu")
     c_hist, c_idx, c_pk = (t.numpy() for t in c_fn(*c_args))
@@ -1791,7 +1824,7 @@ def real_library_phase(dev, card):
 
     hook = torch.nn.modules.module.register_module_forward_pre_hook(on_iir)
     worst = {"db": 0.0, "peak": 0.0, "seg": 0.0}
-    for c in (ek.COUNT, hk.COUNT, cc.COUNT):
+    for c in (K1, K2, K3):
         c.reset()
     root = tempfile.mkdtemp(prefix="mp3rgain-real-")
     workers = max(1, min(REAL_POOL, os.cpu_count() or 1))
@@ -2128,9 +2161,9 @@ def real_library_phase(dev, card):
         pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(root, ignore_errors=True)
 
-    launches = {"entropy_decode_rows": ek.COUNT.kernel, "requant_stereo": hk.COUNT.kernel,
-                "class_core_gemm": cc.COUNT.kernel}
-    plain = ek.COUNT.plain + hk.COUNT.plain + cc.COUNT.plain
+    launches = {"entropy_decode_rows": K1.kernel, "requant_stereo": K2.kernel,
+                "class_core_gemm": K3.kernel}
+    plain = K1.plain + K2.plain + K3.plain
     check(all(v >= 1 for v in launches.values()) and plain == 0,
           f"real_library: K1, K2 and K3 launched ({launches}), no plain call ({plain})")
     del runner
@@ -2445,9 +2478,9 @@ def main() -> None:
         runner.analyze_unpacked_light([u] * BATCH_TRACKS, 44100, 2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ek.COUNT.reset()
-    hk.COUNT.reset()
-    cc.COUNT.reset()
+    K1.reset()
+    K2.reset()
+    K3.reset()
     # The lane-major decode and its unsort are off the main path now: make
     # any call of them fail the run (the spectrum row gathers are gone
     # from the code).
@@ -2461,9 +2494,9 @@ def main() -> None:
     finally:
         for f, fn in off_path.items():
             setattr(ek, f, fn)
-    counts = {"entropy_decode_rows": ek.COUNT.kernel, "requant_stereo": hk.COUNT.kernel}
-    plain_calls = ek.COUNT.plain + hk.COUNT.plain + cc.COUNT.plain
-    timing = runner.last_timings
+    counts = {"entropy_decode_rows": K1.kernel, "requant_stereo": K2.kernel}
+    plain_calls = K1.plain + K2.plain + K3.plain
+    timing = runner.timings[-1]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(all(v == 1 for v in counts.values()), f"K1 and K2 launched once: {counts}")
     check(plain_calls == 0, f"no plain-version calls on CUDA ({plain_calls})")
@@ -2523,15 +2556,15 @@ def main() -> None:
         runner.analyze_unpacked([full] * BATCH_TRACKS, 44100, 2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ek.COUNT.reset()
-    hk.COUNT.reset()
-    cc.COUNT.reset()
+    K1.reset()
+    K2.reset()
+    K3.reset()
     t0 = time.perf_counter()
     h_hist, h_louds, h_peaks = runner.analyze_unpacked([full] * BATCH_TRACKS, 44100, 2)
     h_wall_s = time.perf_counter() - t0
-    h_counts = {"class_core_gemm": cc.COUNT.kernel}
-    h_plain = ek.COUNT.plain + hk.COUNT.plain + cc.COUNT.plain
-    h_timing = runner.last_timings
+    h_counts = {"class_core_gemm": K3.kernel}
+    h_plain = K1.plain + K2.plain + K3.plain
+    h_timing = runner.timings[-1]
     h_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(h_counts["class_core_gemm"] > 0, f"K3 launched on the heavy route: {h_counts}")
     check(h_plain == 0, f"no plain-version calls on CUDA ({h_plain})")
@@ -2681,4 +2714,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    from mp3rgain_tpu_torch import tracing
+
+    with tracing.recording():
+        main()

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from . import tracing
 from .decode import aac_frontend as af
 from .decode import aac_prep, aac_synthesis
 from .decode.aac_format_tables import SWB_1024_MAP, SWB_LONG_TABLES
@@ -377,7 +378,8 @@ def audio_seconds(u) -> float:
 def _analyze_on_device(path, track_index, runner: pr.Runner,
                        device_prep: bool | None):
     device_prep = use_device_prep(runner.device, device_prep)
-    u = unpack_for(path, track_index, device_prep)
+    with tracing.span("walk"):
+        u = unpack_for(path, track_index, device_prep)
     batch = analyze_batch_q if device_prep else analyze_batch
     hist, louds, peaks = batch([u], u.sample_rate, u.n_channels or 1,
                                runner=runner)

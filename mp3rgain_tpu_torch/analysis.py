@@ -17,6 +17,7 @@ import os
 import numpy as np
 import torch
 
+from . import tracing
 from .decode import frontend
 from .native import _inbuf, _lib
 from .ops import histogram as hi
@@ -69,6 +70,7 @@ def _sniff_adts(head: bytes) -> bool:
     return nxt >= len(head)  # single trailing frame
 
 
+@tracing.traced("detect")
 def _detect_file_type(path) -> str:
     """"aac" for MP4 containers and raw ADTS streams, else "mp3"."""
     with open(path, "rb") as f:
@@ -80,7 +82,7 @@ def _detect_file_type(path) -> str:
 
 def _analyze_mp3(path, runner: Runner):
     """(hist (12000,) on the host, loudness dB, peak, sample rate)."""
-    with open(path, "rb") as f:
+    with tracing.span("walk"), open(path, "rb") as f:
         u = frontend.unpack_data_light_packed(f.read())
     if u.n == 0:
         raise AnalysisError("No valid MP3 frames found")
@@ -89,6 +91,7 @@ def _analyze_mp3(path, runner: Runner):
     return hist[0], float(louds[0]), float(peaks[0]), u.sample_rate
 
 
+@tracing.traced("track")
 def analyze_track_internal(path: os.PathLike | str,
                            track_index: int | None = None, *,
                            device="cuda", runner: Runner | None = None
@@ -115,6 +118,7 @@ def analyze_track_internal(path: os.PathLike | str,
     return TrackAnalysisInternal(result, hist)
 
 
+@tracing.traced("album")
 def analyze_album(files, track_index: int | None = None, *,
                   device="cuda", runner: Runner | None = None) -> AlbumGainResult:
     """Album analysis over MP3 and AAC files: union histogram

@@ -23,14 +23,11 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build
-from ..device import LaunchCount, check_tensor
+from .. import _build, tracing
+from ..device import check_tensor
 
 K = 576
 N = 1152
-
-# Kernel launches and plain-version calls of class_core_gemm.
-COUNT = LaunchCount()
 
 
 def split_bf16(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -84,7 +81,7 @@ def class_core_gemm(x: torch.Tensor, chi: torch.Tensor, clo: torch.Tensor,
         None if row_core is None else row_core.data_ptr(), out.data_ptr(),
         c, r, ncore, npass, stream,
     )
-    COUNT.kernel += 1
+    tracing.count("launches.class_core_gemm")
     _build.check(rc, "class_core_gemm launch")
     return out
 
@@ -97,7 +94,7 @@ def class_core_gemm_reference(x: torch.Tensor, chi: torch.Tensor,
     TF32 off; only the summation order differs from the kernel's. Cores
     that no row selects are skipped."""
     _, c, r, ncore = _check_inputs(x, chi, clo, npass, row_core)
-    COUNT.plain += 1
+    tracing.count("plain.class_core_gemm")
     xh, xl = (t.to(torch.float32) for t in split_bf16(x))
     acc = torch.zeros((c, r, N), dtype=torch.float32, device=x.device)
     for k in range(ncore):

@@ -32,8 +32,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import _build
-from ..device import LaunchCount, check_tensor
+from .. import _build, tracing
+from ..device import check_tensor
 from ..native import _lib
 from ..utils import bufpool
 from . import frontend as fe
@@ -57,9 +57,6 @@ MAX_STEPS = 288  # >= bvp + (576-2*bvp)/4 for all legal streams
 W8_MAX = 17
 SUBG = 128
 SUBG_N = LANES // SUBG
-
-# Kernel launches and plain-version calls of decode_rows.
-COUNT = LaunchCount()
 
 
 def _cap(value, caps):
@@ -391,7 +388,7 @@ def decode_rows(scalars: torch.Tensor, buf: torch.Tensor, meta: torch.Tensor,
             dest.data_ptr(), nb, LANES, spec.data_ptr(), big_end.data_ptr(),
             count1_end.data_ptr(), covered.data_ptr(), n_rows, stream,
         )
-    COUNT.kernel += 1
+    tracing.count("launches.entropy_decode_rows")
     _build.check(rc, "entropy_decode_rows launch")
     return spec, big_end, count1_end
 
@@ -403,7 +400,7 @@ def decode_rows_reference(scalars: torch.Tensor, buf: torch.Tensor,
     decode_blocks_reference, unsort_blocks' bad-lane mask (in sorted lane
     order), then a scatter of each lane's row through dest into zeros."""
     dev, nb = _check_row_inputs(scalars, buf, meta, dest, n_rows)
-    COUNT.plain += 1
+    tracing.count("plain.entropy_decode_rows")
     spec_b, mout = decode_blocks_reference(scalars, buf, meta, luts)
     lanes = torch.arange(nb * LANES, device=dev)
     spec, big_end, count1_end, _ok = unsort_blocks(spec_b, mout, lanes, nb=nb)

@@ -37,8 +37,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import _build
-from ..device import LaunchCount, check_tensor
+from .. import _build, tracing
+from ..device import check_tensor
 from .tables import KIND_MIXED, build_tables, row_tables
 
 # gmeta field indices (int32, one row per granule-channel).
@@ -69,9 +69,6 @@ CW_WIN = (7, 2)  # subblock window + 1, 0..3
 CW_PRETAB = (9, 2)  # pretab, 0..3
 CW_SHORT = (11, 1)  # short-block flag
 CW_BAND_START = (12, 10)  # intensity band start, 0..576
-
-# Kernel launches and plain-version calls of fused_requant_stereo.
-COUNT = LaunchCount()
 
 
 @lru_cache(maxsize=None)
@@ -260,7 +257,7 @@ def fused_requant_stereo(spec: torch.Tensor, scf: torch.Tensor,
             spec.data_ptr(), scf.data_ptr(), gmeta.data_ptr(),
             tables.class_words.data_ptr(), tables.is_ratio.data_ptr(),
             out.data_ptr(), c, r, stream)
-    COUNT.kernel += 1
+    tracing.count("launches.requant_stereo")
     _build.check(rc, "requant_stereo launch")
     return out
 
@@ -295,7 +292,7 @@ def _requant_reference(spec, scf, gm, tables):
 def fused_requant_stereo_reference(spec, scf, gmeta, tables: HybridTables):
     """Plain torch version of fused_requant_stereo (same contract)."""
     _, c, _ = _check_inputs(spec, scf, gmeta)
-    COUNT.plain += 1
+    tracing.count("plain.requant_stereo")
     x0, _, cls0 = _requant_reference(spec[0], scf[0], gmeta[0], tables)
     if c == 1:
         return x0[None]

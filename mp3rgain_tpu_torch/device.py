@@ -16,7 +16,6 @@ unmeasured against that budget, so it stays off.
 from __future__ import annotations
 
 import subprocess
-from dataclasses import dataclass
 
 import torch
 
@@ -53,19 +52,6 @@ def resolve_device(device) -> torch.device:
         raise ValueError(f"unsupported device {dev}")
     apply_precision_policy()
     return dev
-
-
-@dataclass
-class LaunchCount:
-    """Per-kernel counters: `kernel` counts launches of the hand-written
-    kernel, `plain` counts calls of its plain PyTorch version."""
-
-    kernel: int = 0
-    plain: int = 0
-
-    def reset(self) -> None:
-        self.kernel = 0
-        self.plain = 0
 
 
 def mark_stage(on_stage, name: str) -> None:

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import tracing
 from ..decode import entropy_kernel as ek
 from ..decode import frontend as fe
 from ..decode import hybrid_kernel as hk
@@ -577,6 +578,15 @@ _STAGING_SLOTS = 2  # pinned slots: one being copied while the next fills
 TIMINGS_KEPT = 1024
 
 
+def _count_rows(unpacked: list, padded: int, per: int = 1) -> None:
+    """rows.real (each track's granule-channel or frame-channel rows, n
+    cut to whole multiples of `per`) and rows.padded (the batch's padded
+    rows) of one prepared batch, while tracing records."""
+    if tracing.on():
+        tracing.count("rows.real", sum(u.n // per * per for u in unpacked))
+        tracing.count("rows.padded", padded)
+
+
 @dataclass
 class Prepared:
     """A batch's host half (Runner.prepare_light / prepare_heavy /
@@ -600,7 +610,10 @@ class _Batch:
     """A dispatched batch, for Runner.collect. On the CPU `result` holds
     the (hist, loud_idx, peak) tensors; on a CUDA device `hist` and
     `stats` are the pinned host buffers the batch's readback lands in and
-    `events` (copy start, copy end, compute start, readback end) time it."""
+    `events` (copy start, copy end, compute start, readback end) time it.
+    While tracing records, `stages` holds the batch's stage marks (None,
+    then each stage's name, with a CUDA event or a host-clock time in ns)
+    and `span` its upload span, which the stages' device spans hang under."""
 
     bsz: int
     route: str
@@ -611,6 +624,8 @@ class _Batch:
     hist: torch.Tensor | None = None
     stats: torch.Tensor | None = None
     events: tuple | None = None
+    stages: list | None = None
+    span: object = None
 
 
 class Runner:
@@ -644,9 +659,8 @@ class Runner:
         self._aac_synthesis: nn.Module | None = None
         self._lock = threading.RLock()
         # route, prep_s / h2d_s (host clock) and device_ms of the last
-        # collected batch, and of the last TIMINGS_KEPT collected batches
-        # in collect order (a shared Runner lives as long as the process).
-        self.last_timings: dict | None = None
+        # TIMINGS_KEPT collected batches in collect order (a shared Runner
+        # lives as long as the process).
         self.timings: deque[dict] = deque(maxlen=TIMINGS_KEPT)
         # CUDA only: each of those batches' device-busy intervals (its
         # upload, then its compute + readback), ms on the runner's clock.
@@ -658,6 +672,10 @@ class Runner:
             self._slot = 0
             self._origin = torch.cuda.Event(enable_timing=True)
             self._origin.record(self._compute)
+        # _origin on the tracing (profiler) clock, taken when the first
+        # traced batch is collected (_anchor): origin_ns + ms * 1e6 puts a
+        # busy_ms entry on that clock.
+        self.origin_ns: int | None = None
 
     def tail(self, sample_rate: int, n_channels: int) -> LightTail:
         key = (sample_rate, n_channels)
@@ -700,7 +718,8 @@ class Runner:
         self._slot = (self._slot + 1) % len(self._ring)
         staged, last_copy = slot
         if last_copy is not None:
-            last_copy.synchronize()  # the copy that read this slot is done
+            with tracing.span("slot_wait"):
+                last_copy.synchronize()  # the copy that read this slot is done
         if staged is None or staged.numel() < total:
             size = -(-(total + total // 4) // _GROW_UNIT) * _GROW_UNIT
             staged = torch.empty(size, dtype=torch.uint8, pin_memory=True)
@@ -726,24 +745,31 @@ class Runner:
         return out, (start, end)
 
     def _launch(self, run, prepared: Prepared, h2d_s: float, copy,
-                album: torch.Tensor | None) -> _Batch:
+                album: torch.Tensor | None, stages: list | None) -> _Batch:
         """Enqueue run() → (hist, loud_idx, peak) after the upload, the
         album sum (album += the batch's histograms, int64) and the
-        readback."""
+        readback. stages, while tracing records, gets the batch's start
+        mark ahead of run()'s stage marks."""
         bsz, route, prep_s = prepared.bsz, prepared.route, prepared.prep_s
         if copy is None:
             t = time.perf_counter()
-            hist, loud_idx, peak = run()
+            if stages is not None:
+                stages.append((None, time.time_ns()))
+            with tracing.span("enqueue"):
+                hist, loud_idx, peak = run()
             if album is not None:
                 album += hist[:bsz].sum(dim=0, dtype=torch.int64)
             return _Batch(bsz, route, prep_s, h2d_s, (time.perf_counter() - t) * 1e3,
-                          result=(hist, loud_idx, peak))
+                          result=(hist, loud_idx, peak), stages=stages)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         with torch.cuda.stream(self._compute):
             self._compute.wait_event(copy[1])
             start.record()
-            hist, loud_idx, peak = run()
+            if stages is not None:
+                stages.append((None, start))
+            with tracing.span("enqueue"):
+                hist, loud_idx, peak = run()
             hist = hist[:bsz]
             stats = torch.stack([loud_idx[:bsz].to(torch.float32),
                                  peak[:bsz].to(torch.float32)])
@@ -755,26 +781,30 @@ class Runner:
                 album += hist.sum(dim=0, dtype=torch.int64)
             end.record()
         return _Batch(bsz, route, prep_s, h2d_s, hist=h_host, stats=s_host,
-                      events=(copy[0], copy[1], start, end))
+                      events=(copy[0], copy[1], start, end), stages=stages)
 
     def prepare_light(self, unpacked: list, sample_rate: int,
                       n_channels: int) -> Prepared:
         """Host prep of a batch of same-format light-unpacked tracks."""
-        t0 = time.perf_counter()
-        prep, rest, g_max = prepare_batch_arrays_light(unpacked, n_channels, 1)
-        return Prepared("light", sample_rate, n_channels, len(unpacked),
-                        (prep.scalars, prep.buf, prep.meta, prep.inv) + tuple(rest),
-                        (prep.buf, prep.meta, rest[1], rest[6]),
-                        {"nb": prep.nb, "g_max": g_max}, time.perf_counter() - t0)
+        with tracing.span("prep"):
+            t0 = time.perf_counter()
+            prep, rest, g_max = prepare_batch_arrays_light(unpacked, n_channels, 1)
+            _count_rows(unpacked, len(rest[0]) * g_max)
+            return Prepared("light", sample_rate, n_channels, len(unpacked),
+                            (prep.scalars, prep.buf, prep.meta, prep.inv) + tuple(rest),
+                            (prep.buf, prep.meta, rest[1], rest[6]),
+                            {"nb": prep.nb, "g_max": g_max}, time.perf_counter() - t0)
 
     def prepare_heavy(self, unpacked: list, sample_rate: int,
                       n_channels: int) -> Prepared:
         """Host prep of a batch of same-format host-decoded tracks
         (frontend.unpack_data)."""
-        t0 = time.perf_counter()
-        args = prepare_batch_arrays(unpacked, n_channels, 1)
-        return Prepared("heavy", sample_rate, n_channels, len(unpacked), args, (), {},
-                        time.perf_counter() - t0)
+        with tracing.span("prep"):
+            t0 = time.perf_counter()
+            args = prepare_batch_arrays(unpacked, n_channels, 1)
+            _count_rows(unpacked, args[0].shape[0] * args[0].shape[1])
+            return Prepared("heavy", sample_rate, n_channels, len(unpacked), args, (), {},
+                            time.perf_counter() - t0)
 
     def prepare_aac_q(self, unpacked: list, sample_rate: int,
                       n_channels: int) -> Prepared:
@@ -788,17 +818,19 @@ class Runner:
         from ..decode import aac_prep
         from ..decode.aac_synthesis import short_rows
 
-        t0 = time.perf_counter()
-        (spec_q4, meta, esc_idx, esc_val, fb16, fbexp, fbmap, wseq, wshape,
-         valid) = aac.prepare_batch_arrays_aac_q(unpacked, n_channels)
-        fb_dst, fb_src = aac_prep.fallback_rows(fbmap)
-        rows, counts = short_rows(wseq, wshape, n_channels)
-        return Prepared(
-            "aac_q", sample_rate, n_channels, len(unpacked),
-            (spec_q4, meta, esc_idx, esc_val, fb16[fb_src], fbexp[fb_src],
-             fb_dst, wseq, wshape, valid, rows),
-            (spec_q4, meta, fbmap, wseq, wshape), {"short_counts": counts},
-            time.perf_counter() - t0)
+        with tracing.span("prep"):
+            t0 = time.perf_counter()
+            (spec_q4, meta, esc_idx, esc_val, fb16, fbexp, fbmap, wseq, wshape,
+             valid) = aac.prepare_batch_arrays_aac_q(unpacked, n_channels)
+            fb_dst, fb_src = aac_prep.fallback_rows(fbmap)
+            rows, counts = short_rows(wseq, wshape, n_channels)
+            _count_rows(unpacked, wseq.shape[0] * wseq.shape[1], n_channels)
+            return Prepared(
+                "aac_q", sample_rate, n_channels, len(unpacked),
+                (spec_q4, meta, esc_idx, esc_val, fb16[fb_src], fbexp[fb_src],
+                 fb_dst, wseq, wshape, valid, rows),
+                (spec_q4, meta, fbmap, wseq, wshape), {"short_counts": counts},
+                time.perf_counter() - t0)
 
     def prepare_aac(self, unpacked: list, sample_rate: int,
                     n_channels: int) -> Prepared:
@@ -807,21 +839,23 @@ class Runner:
         from .. import aac
         from ..decode.aac_synthesis import short_rows
 
-        t0 = time.perf_counter()
-        spec, sexp, wseq, wshape, valid = aac.prepare_batch_arrays_aac(
-            unpacked, n_channels)
-        rows, counts = short_rows(wseq, wshape, n_channels)
-        return Prepared(
-            "aac", sample_rate, n_channels, len(unpacked),
-            (spec, sexp, wseq, wshape, valid, rows), (spec, sexp, wseq, wshape),
-            {"short_counts": counts}, time.perf_counter() - t0)
+        with tracing.span("prep"):
+            t0 = time.perf_counter()
+            spec, sexp, wseq, wshape, valid = aac.prepare_batch_arrays_aac(
+                unpacked, n_channels)
+            rows, counts = short_rows(wseq, wshape, n_channels)
+            _count_rows(unpacked, wseq.shape[0] * wseq.shape[1], n_channels)
+            return Prepared(
+                "aac", sample_rate, n_channels, len(unpacked),
+                (spec, sexp, wseq, wshape, valid, rows), (spec, sexp, wseq, wshape),
+                {"short_counts": counts}, time.perf_counter() - t0)
 
     def launch(self, prepared: Prepared, *, album: torch.Tensor | None = None):
         """Stage, upload and enqueue a prepared batch; returns a handle for
         collect(). album, a (12000,) int64 tensor on the device, gets the
         batch's histograms added on the device."""
         aac_route = prepared.route in ("aac_q", "aac")
-        with self._lock, _on(self.device):
+        with tracing.span("upload") as up, self._lock, _on(self.device):
             tail = (self.aac_tail if aac_route else self.tail)(
                 prepared.sample_rate, prepared.n_channels)
             t1 = time.perf_counter()
@@ -837,11 +871,60 @@ class Runner:
                 core = aac.analysis_core_q if prepared.route == "aac_q" else aac.analysis_core
             else:
                 core = analysis_core_light if prepared.route == "light" else analysis_core
+            kwargs = prepared.shapes
+            stages = None
+            if up is not None and prepared.route != "heavy":
+                stages = []
+                kwargs = dict(kwargs, on_stage=self._stage_marker(stages))
 
             def run():
-                return core(tail, *dev, **prepared.shapes)
+                return core(tail, *dev, **kwargs)
 
-            return self._launch(run, prepared, h2d_s, copy, album)
+            batch = self._launch(run, prepared, h2d_s, copy, album, stages)
+            batch.span = up
+            return batch
+
+    def _stage_marker(self, stages: list):
+        """on_stage for a traced batch: each stage's name with a CUDA event
+        recorded on the current stream (on the CPU, where a stage has run
+        when it is marked, the host clock)."""
+        if self.device.type == "cpu":
+            return lambda name: stages.append((name, time.time_ns()))
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            stages.append((name, ev))
+
+        return mark
+
+    def _anchor(self) -> None:
+        """Set origin_ns once. With the device drained and launches held
+        off (the lock), a new event completes between the two host
+        readings; its time after _origin places _origin on the host's clock."""
+        with self._lock:
+            if self.origin_ns is not None:
+                return
+            torch.cuda.synchronize(self.device)
+            ev = torch.cuda.Event(enable_timing=True)
+            before = time.time_ns()
+            ev.record(self._compute)
+            ev.synchronize()
+            mid = (before + time.time_ns()) // 2
+            self.origin_ns = mid - int(self._origin.elapsed_time(ev) * 1e6)
+
+    def _ns(self, ms: float) -> int:
+        """A time on the runner's clock (ms after _origin) on the tracing clock."""
+        return self.origin_ns + int(ms * 1e6)
+
+    def _trace_stages(self, handle: _Batch, clock) -> None:
+        """The device spans of a traced batch's stages, each from the mark
+        before it to its own (clock: a mark's time on the tracing clock)."""
+        if not handle.stages or handle.span is None:
+            return
+        marks = [(name, clock(t)) for name, t in handle.stages]
+        tracing.device_spans(str(self.device), handle.span.id, handle.span.root,
+                             [(name, a, b) for (_, a), (name, b) in zip(marks, marks[1:])])
 
     def dispatch_light(self, unpacked: list, sample_rate: int,
                        n_channels: int, *, album: torch.Tensor | None = None):
@@ -860,26 +943,34 @@ class Runner:
         event only); returns host arrays (hist (B, 12000) int32, loudness
         (B,) dB, peak (B,))."""
         bsz = handle.bsz
-        if handle.events is None:
-            hist_t, loud_idx, peak = handle.result
-            hist = hist_t[:bsz].numpy()
-            idx = loud_idx[:bsz].numpy()
-            peaks = peak[:bsz].to(torch.float32).numpy()
-            device_ms = handle.device_ms
-        else:
-            copy_start, copy_end, start, end = handle.events
-            with _on(self.device):  # the caller's thread may sit on another card
-                end.synchronize()
-                hist = np.array(handle.hist.numpy())  # off the pinned block
-                stats = handle.stats.numpy()
-                idx, peaks = stats[0], stats[1].copy()
-                device_ms = start.elapsed_time(end)
-                self.busy_ms += [
-                    (self._origin.elapsed_time(a), self._origin.elapsed_time(b))
-                    for a, b in ((copy_start, copy_end), (start, end))]
-        self.last_timings = {"route": handle.route, "prep_s": handle.prep_s,
-                             "h2d_s": handle.h2d_s, "device_ms": device_ms}
-        self.timings.append(self.last_timings)
+        with tracing.span("collect") as span:
+            if handle.events is None:
+                hist_t, loud_idx, peak = handle.result
+                hist = hist_t[:bsz].numpy()
+                idx = loud_idx[:bsz].numpy()
+                peaks = peak[:bsz].to(torch.float32).numpy()
+                device_ms = handle.device_ms
+                if span is not None:
+                    self._trace_stages(handle, lambda t: t)
+            else:
+                copy_start, copy_end, start, end = handle.events
+                with _on(self.device):  # the caller's thread may sit on another card
+                    end.synchronize()
+                    hist = np.array(handle.hist.numpy())  # off the pinned block
+                    stats = handle.stats.numpy()
+                    idx, peaks = stats[0], stats[1].copy()
+                    device_ms = start.elapsed_time(end)
+                    busy = [(self._origin.elapsed_time(a), self._origin.elapsed_time(b))
+                            for a, b in ((copy_start, copy_end), (start, end))]
+                    self.busy_ms += busy
+                    if span is not None:
+                        self._anchor()
+                        for a, b in busy:
+                            tracing.busy(self._ns(a), self._ns(b))
+                        self._trace_stages(
+                            handle, lambda ev: self._ns(self._origin.elapsed_time(ev)))
+        self.timings.append({"route": handle.route, "prep_s": handle.prep_s,
+                             "h2d_s": handle.h2d_s, "device_ms": device_ms})
         louds = np.array([hi.index_to_loudness(i) for i in idx])
         return hist, louds, peaks
 
@@ -1300,6 +1391,7 @@ def analyze_library(
         except Exception as e:
             if not _retryable(e):
                 raise
+            tracing.count("oom.retries")
             if runner.device.type == "cuda":
                 with _on(runner.device):
                     torch.cuda.empty_cache()
@@ -1310,6 +1402,7 @@ def analyze_library(
                 except Exception as e2:
                     if not _retryable(e2):
                         raise
+                    tracing.count("tracks.isolated")
                     return [(idxs, e2)]
             mid = len(ups) // 2
             return (_dispatch_collect_halving(lane, ups[:mid], idxs[:mid], sr, nch)
@@ -1346,16 +1439,28 @@ def analyze_library(
     def collect_one(lane):
         fut, idxs, sr, nch, ups, _est = lane.inflight.popleft()
         try:
-            handle = fut.result()
+            with tracing.span("collect"):
+                handle = fut.result()
         except Exception as e:
             if not _retryable(e):
                 raise
-            retried = lane.uploader.submit(_dispatch_collect_halving, lane, ups, idxs,
-                                           sr, nch)
-            for idxs2, collected in retried.result():
+            tracing.count("oom.retries")
+            retried = lane.uploader.submit(tracing.carry(_dispatch_collect_halving),
+                                            lane, ups, idxs, sr, nch)
+            with tracing.span("collect"):
+                halves = retried.result()
+            for idxs2, collected in halves:
                 _finish_batch(idxs2, sr, collected)
             return
         _finish_batch(idxs, sr, lane.runner.collect(handle))
+
+    def must_wait(lane, est):
+        """Admission: at most MAX_INFLIGHT batches in flight on a Runner
+        and, beyond two, only while their estimated bytes fit."""
+        return bool(lane.inflight) and (
+            len(lane.inflight) >= MAX_INFLIGHT
+            or (len(lane.inflight) >= 2
+                and lane.queued_bytes() + est > inflight_bytes))
 
     def flush_bucket(key, members):
         sr, nch = key
@@ -1363,15 +1468,13 @@ def analyze_library(
         ups = [u for _, u in members]
         est = codec.est_bytes(ups)
         lane = min(lanes, key=_Lane.queued_bytes)  # ties go to the first
-        while lane.inflight and (
-            len(lane.inflight) >= MAX_INFLIGHT
-            or (len(lane.inflight) >= 2
-                and lane.queued_bytes() + est > inflight_bytes)
-        ):
-            collect_one(lane)
-        prepared = preppers.submit(prepare, ups, sr, nch)
-        lane.inflight.append((lane.uploader.submit(_launch, lane, prepared), idxs, sr,
-                              nch, ups, est))
+        if must_wait(lane, est):
+            with tracing.span("admit"):
+                while must_wait(lane, est):
+                    collect_one(lane)
+        prepared = preppers.submit(tracing.carry(prepare), ups, sr, nch)
+        lane.inflight.append((lane.uploader.submit(tracing.carry(_launch), lane, prepared),
+                              idxs, sr, nch, ups, est))
 
     def flush_ready(key, members, final=False):
         """Cut length-sorted, rows-capped batches off a bucket: whole
@@ -1386,7 +1489,13 @@ def analyze_library(
 
     # The walk leaves the prep threads their cores.
     workers = min(max(len(paths), 1), max((os.cpu_count() or 1) - prep_threads, 1), 16)
-    walkers = ThreadPoolExecutor(max_workers=workers) if workers > 1 else None
+    walkers = (ThreadPoolExecutor(max_workers=workers, thread_name_prefix="mp3rgain-walk")
+               if workers > 1 else None)
+
+    def walk(path):
+        with tracing.span("walk"):
+            return _result_of(_unpack, path)
+
     first = min(wave_size, max_batch)
     bounds = [0, *range(first, len(paths), wave_size), len(paths)]
     try:
@@ -1394,9 +1503,9 @@ def analyze_library(
             widx = list(range(wstart, wend))
             wave = [paths[i] for i in widx]
             if walkers is not None and len(wave) > 1:
-                unpacked = list(walkers.map(lambda p: _result_of(_unpack, p), wave))
+                unpacked = list(walkers.map(tracing.carry(walk), wave))
             else:
-                unpacked = [_result_of(_unpack, p) for p in wave]
+                unpacked = [walk(p) for p in wave]
             for i, path, (u, err) in zip(widx, wave, unpacked):
                 if err is not None:
                     outcomes[i] = TrackOutcome(path=str(path), ok=False,
@@ -1409,10 +1518,11 @@ def analyze_library(
                 flush_ready(key, members)
         for key, members in buckets.items():
             flush_ready(key, members, final=True)
-        while any(lane.inflight for lane in lanes):
-            for lane in lanes:
-                if lane.inflight:
-                    collect_one(lane)
+        with tracing.span("drain"):
+            while any(lane.inflight for lane in lanes):
+                for lane in lanes:
+                    if lane.inflight:
+                        collect_one(lane)
     finally:
         for lane in lanes:
             lane.uploader.shutdown(wait=True, cancel_futures=True)

@@ -28,6 +28,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from . import tracing
 from .ops import histogram as hi
 from .replaygain import PINK_REF, ReplayGainResult
 
@@ -143,6 +144,7 @@ class Manifest:
             pass
 
 
+@tracing.traced("scan")
 def scan_files(paths, manifest_path=None, progress_cb=None, *, device="cuda",
                runner=None, runners=None,
                device_prep: bool | None = None) -> ScanResult:
@@ -157,25 +159,25 @@ def scan_files(paths, manifest_path=None, progress_cb=None, *, device="cuda",
     from .parallel import runner as parallel_runner
 
     t0 = time.monotonic()
-    manifest = Manifest(manifest_path)
     out = ScanResult(results={}, histograms={})
-
     todo_mp3 = []
     todo_aac = []
-    for p in paths:
-        cached = None
-        try:
-            cached = manifest.lookup(p)
-        except OSError as e:
-            out.results[str(p)] = e
-            continue
-        if cached is not None:
-            res, hist = cached
-            out.results[str(p)] = res
-            out.histograms[str(p)] = hist
-            out.resumed += 1
-            continue
-        (todo_aac if _detect_file_type(p) == "aac" else todo_mp3).append(p)
+    with tracing.span("manifest.lookup"):
+        manifest = Manifest(manifest_path)
+        for p in paths:
+            cached = None
+            try:
+                cached = manifest.lookup(p)
+            except OSError as e:
+                out.results[str(p)] = e
+                continue
+            if cached is not None:
+                res, hist = cached
+                out.results[str(p)] = res
+                out.histograms[str(p)] = hist
+                out.resumed += 1
+                continue
+            (todo_aac if _detect_file_type(p) == "aac" else todo_mp3).append(p)
 
     if runner is not None:
         if runners is not None:
@@ -190,7 +192,8 @@ def scan_files(paths, manifest_path=None, progress_cb=None, *, device="cuda",
     if todo_aac:
         _scan_aac(todo_aac, out, manifest, progress_cb, runners, device_prep)
 
-    manifest.save()
+    with tracing.span("manifest.compact"):
+        manifest.save()
     out.wall_seconds = time.monotonic() - t0
     return out
 
@@ -205,10 +208,11 @@ def _scan_batches(paths, out: ScanResult, manifest: Manifest, progress_cb,
     from .parallel import runner as parallel_runner
 
     def checkpoint(done_tracks):
-        for track in done_tracks:
-            if track.ok:
-                manifest.store(track.path, track.result, track.histogram)
-        manifest.save(force=False)
+        with tracing.span("manifest.journal"):
+            for track in done_tracks:
+                if track.ok:
+                    manifest.store(track.path, track.result, track.histogram)
+            manifest.save(force=False)
 
     batch = parallel_runner.analyze_library(
         paths, runners=runners, batch_cb=checkpoint, **library_args)
@@ -240,6 +244,7 @@ def _scan_aac(paths, out: ScanResult, manifest: Manifest, progress_cb,
                   device_prep=device_prep)
 
 
+@tracing.traced("album_union")
 def album_union(scan: ScanResult, paths) -> tuple[float, float, float]:
     """(album_loudness, album_gain, album_peak) from per-track histograms.
 

@@ -183,7 +183,8 @@ for name in ("decode.class_core", "decode.synthesis", "tools.hk_dotprobe",
 
 from mp3rgain_tpu.decode import frontend as fe
 from mp3rgain_tpu.testing import craft
-from mp3rgain_tpu_torch.decode import class_core, synthesis
+from mp3rgain_tpu_torch import tracing
+from mp3rgain_tpu_torch.decode import synthesis
 from mp3rgain_tpu_torch.parallel.runner import Runner
 
 data = craft.craft_count1b_stream(n_frames=12)
@@ -191,9 +192,11 @@ u = fe.unpack_data_light_packed(data)
 hist, louds, peaks = Runner("cpu").analyze_unpacked_light([u], u.sample_rate, u.n_channels)
 assert hist.shape == (1, 12000) and peaks.shape == (1,)
 full = fe.unpack_data(data)
-h_hist, h_louds, h_peaks = Runner("cpu").analyze_unpacked([full], u.sample_rate, u.n_channels)
+with tracing.recording():
+    h_hist, h_louds, h_peaks = Runner("cpu").analyze_unpacked([full], u.sample_rate,
+                                                              u.n_channels)
 assert h_hist.shape == (1, 12000) and h_peaks.shape == (1,)
-assert class_core.COUNT.plain >= 1
+assert tracing.counter("plain.class_core_gemm") >= 1
 pcm = synthesis.decode_batch(synthesis.batch_from_unpacked(full, "cpu"),
                              synthesis.DecodeTables(int(full.info[0, fe.SR_ROW])))
 assert pcm.shape == (1, full.n_channels, full.n // full.n_channels * 576)

@@ -21,6 +21,7 @@ pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import ml_dtypes  # noqa: E402
 
+from mp3rgain_tpu_torch import tracing  # noqa: E402
 from mp3rgain_tpu_torch.decode import class_core as cc  # noqa: E402
 from mp3rgain_tpu_torch.tools import hk_dotprobe  # noqa: E402
 
@@ -74,10 +75,11 @@ def test_plain_version_matches_jax_probe_body(ncore, npass, select):
     want = _jax_probe_body(x, jnp.asarray(chi_np), jnp.asarray(clo_np), npass,
                            row_core if select else None)
     chi, clo = cc.split_bf16(torch.from_numpy(cores))
-    before = (cc.COUNT.kernel, cc.COUNT.plain)
-    got = cc.class_core_gemm(torch.from_numpy(x), chi, clo, npass=npass,
-                             row_core=torch.from_numpy(row_core) if select else None)
-    assert (cc.COUNT.kernel, cc.COUNT.plain) == (before[0], before[1] + 1)
+    with tracing.recording():
+        got = cc.class_core_gemm(torch.from_numpy(x), chi, clo, npass=npass,
+                                 row_core=torch.from_numpy(row_core) if select else None)
+    assert (tracing.counter("launches.class_core_gemm"),
+            tracing.counter("plain.class_core_gemm")) == (0, 1)
     assert got.shape == (2, ROWS, 1152) and got.dtype == torch.float32
     scale = np.abs(want).max()
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * scale)

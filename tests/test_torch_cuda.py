@@ -24,6 +24,7 @@ from mp3rgain_tpu_torch.decode import entropy_kernel as ek
 from mp3rgain_tpu_torch.decode import frontend as fe
 from mp3rgain_tpu_torch.decode import hybrid_kernel as hk
 from mp3rgain_tpu_torch.decode import synthesis as syn
+from mp3rgain_tpu_torch import tracing
 from mp3rgain_tpu_torch.parallel import runner as pr
 from mp3rgain_tpu_torch.testing import craft
 from mp3rgain_tpu_torch.testing import make_smoke_data as smoke
@@ -60,14 +61,19 @@ def _on(dev, arrays):
     return [pr._to_device(a, dev) for a in arrays]
 
 
+def _counts(kernel: str) -> tuple[int, int]:
+    """(launches, plain-version calls) of a kernel in the tracing record."""
+    return tracing.counter("launches." + kernel), tracing.counter("plain." + kernel)
+
+
 def _k1_equal(args, luts, dest, n_rows):
     """decode_rows on the card equals its plain version exactly, and a
     second call gives the same bits; returns the rows."""
-    k0, p0 = ek.COUNT.kernel, ek.COUNT.plain
-    got = ek.decode_rows(*args, luts, dest, n_rows)
-    again = ek.decode_rows(*args, luts, dest, n_rows)
-    torch.cuda.synchronize()
-    assert (ek.COUNT.kernel, ek.COUNT.plain) == (k0 + 2, p0)
+    with tracing.recording():
+        got = ek.decode_rows(*args, luts, dest, n_rows)
+        again = ek.decode_rows(*args, luts, dest, n_rows)
+        torch.cuda.synchronize()
+    assert _counts("entropy_decode_rows") == (2, 0)
     want = ek.decode_rows_reference(*args, luts, dest, n_rows)
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, w) and torch.equal(g, a)
@@ -140,10 +146,10 @@ def test_k2_kernel_matches_plain(name, dev):
     rows = ek.decode_rows(*args[:3], tail.luts, dest, n_rows)
     cm = pr.channel_major_inputs(*rows, *args[4:11], nb=prep.nb,
                                  g_max=g_max, n_channels=u.n_channels)
-    k0 = hk.COUNT.kernel
-    got = hk.fused_requant_stereo(*cm, tail.hybrid)
-    torch.cuda.synchronize()
-    assert hk.COUNT.kernel == k0 + 1
+    with tracing.recording():
+        got = hk.fused_requant_stereo(*cm, tail.hybrid)
+        torch.cuda.synchronize()
+    assert _counts("requant_stereo")[0] == 1
     want = hk.fused_requant_stereo_reference(*cm, tail.hybrid)
     scale = want.abs().max().item()
     assert scale > 0
@@ -183,12 +189,10 @@ def test_k2_kernel_matches_plain_on_random_rows(nch, rows, sr_row, dev):
 
 def test_light_path_on_card_matches_cpu(dev):
     u = fe.unpack_data_light_packed(_clip(smoke.TRANSIENT_TRACK))
-    ek.COUNT.reset()
-    hk.COUNT.reset()
-    hist, louds, peaks = pr.Runner(dev).analyze_unpacked_light(
-        [u, u], u.sample_rate, u.n_channels)
-    assert (ek.COUNT.kernel, hk.COUNT.kernel) == (1, 1)
-    assert (ek.COUNT.plain, hk.COUNT.plain) == (0, 0)
+    with tracing.recording():
+        hist, louds, peaks = pr.Runner(dev).analyze_unpacked_light(
+            [u, u], u.sample_rate, u.n_channels)
+    assert _counts("entropy_decode_rows") == _counts("requant_stereo") == (1, 0)
     c_hist, c_louds, c_peaks = pr.Runner("cpu").analyze_unpacked_light(
         [u], u.sample_rate, u.n_channels)
     assert np.array_equal(hist.sum(axis=1), np.repeat(c_hist.sum(axis=1), 2))
@@ -205,13 +209,11 @@ def test_library_on_card_matches_runner_batches(dev, tmp_path):
         paths.append(str(tmp_path / f"t{i}.mp3"))
         with open(paths[-1], "wb") as f:
             f.write(_clip(smoke.TRANSIENT_TRACK))
-    ek.COUNT.reset()
-    hk.COUNT.reset()
     runner = pr.Runner(dev)
-    res = pr.analyze_library(paths, runner=runner, album=True, max_batch=2)
+    with tracing.recording():
+        res = pr.analyze_library(paths, runner=runner, album=True, max_batch=2)
     assert len(runner.timings) == 3
-    assert (ek.COUNT.kernel, hk.COUNT.kernel) == (3, 3)
-    assert (ek.COUNT.plain, hk.COUNT.plain) == (0, 0)
+    assert _counts("entropy_decode_rows") == _counts("requant_stereo") == (3, 0)
     u = fe.unpack_data_light_packed(_clip(smoke.TRANSIENT_TRACK))
     hist, louds, peaks = pr.Runner(dev).analyze_unpacked_light(
         [u, u], u.sample_rate, u.n_channels)
@@ -232,12 +234,11 @@ def test_failed_kernel_library_raises(dev, monkeypatch):
     monkeypatch.setattr(_build, "library", broken)
     p = ek.prepare_batch(*(lambda lt: (lt.md, lt.meta))(
         fe.unpack_data_light(craft.craft_count1b_stream())))
-    before = ek.COUNT.plain
     args = _on(dev, (p.scalars, p.buf, p.meta, p.inv))
-    with pytest.raises(RuntimeError, match="build failed"):
+    with tracing.recording(), pytest.raises(RuntimeError, match="build failed"):
         ek.decode_rows(*args[:3], ek.EntropyLuts().to(dev),
                        ek.input_order_dest(args[3], p.n), p.n)
-    assert ek.COUNT.plain == before
+    assert _counts("entropy_decode_rows")[1] == 0
 
 
 # rows: 1000 is 7 full row tiles of 128 and a partial one of 104; 300 is
@@ -258,10 +259,10 @@ def test_k3_kernel_matches_plain(ncore, npass, select, rows, dev):
         rc[0, :256] = 0  # tiles of one class skip the other cores
         rc[1, rows // 3 : rows // 3 + 10] = -1  # rows of no class come out zero
         row_core = torch.from_numpy(rc).to(dev)
-    k0, p0 = cc.COUNT.kernel, cc.COUNT.plain
-    got = cc.class_core_gemm(x, chi, clo, npass=npass, row_core=row_core)
-    torch.cuda.synchronize()
-    assert (cc.COUNT.kernel, cc.COUNT.plain) == (k0 + 1, p0)
+    with tracing.recording():
+        got = cc.class_core_gemm(x, chi, clo, npass=npass, row_core=row_core)
+        torch.cuda.synchronize()
+    assert _counts("class_core_gemm") == (1, 0)
     want = cc.class_core_gemm_reference(x, chi, clo, npass=npass, row_core=row_core)
     scale = want.abs().max().item()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
@@ -276,10 +277,9 @@ def test_k3_rejects_misaligned_input(dev):
     """TMA takes 16-byte aligned tensors; the wrapper raises before a launch."""
     x = torch.zeros(4 * 576 + 1, device=dev)[1:].view(1, 4, 576)
     chi = torch.zeros((1, 576, 1152), dtype=torch.bfloat16, device=dev)
-    k0 = cc.COUNT.kernel
-    with pytest.raises(ValueError, match="16-byte aligned"):
+    with tracing.recording(), pytest.raises(ValueError, match="16-byte aligned"):
         cc.class_core_gemm(x, chi, chi)
-    assert cc.COUNT.kernel == k0
+    assert _counts("class_core_gemm")[0] == 0
 
 
 def test_k3_failed_library_raises(dev, monkeypatch):
@@ -289,19 +289,18 @@ def test_k3_failed_library_raises(dev, monkeypatch):
     monkeypatch.setattr(_build, "library", broken)
     x = torch.zeros((1, 4, 576), device=dev)
     chi = torch.zeros((1, 576, 1152), dtype=torch.bfloat16, device=dev)
-    before = cc.COUNT.plain
-    with pytest.raises(RuntimeError, match="build failed"):
+    with tracing.recording(), pytest.raises(RuntimeError, match="build failed"):
         cc.class_core_gemm(x, chi, chi)
-    assert cc.COUNT.plain == before
+    assert _counts("class_core_gemm")[1] == 0
 
 
 def test_heavy_route_on_card_matches_cpu_and_light(dev):
     data = _clip(smoke.TRANSIENT_TRACK)
     full = fe.unpack_data(data)
-    cc.COUNT.reset()
-    hist, louds, peaks = pr.Runner(dev).analyze_unpacked(
-        [full, full], full.sample_rate, full.n_channels)
-    assert cc.COUNT.kernel == 1 and cc.COUNT.plain == 0
+    with tracing.recording():
+        hist, louds, peaks = pr.Runner(dev).analyze_unpacked(
+            [full, full], full.sample_rate, full.n_channels)
+    assert _counts("class_core_gemm") == (1, 0)
     c_hist, c_louds, c_peaks = pr.Runner("cpu").analyze_unpacked(
         [full], full.sample_rate, full.n_channels)
     assert np.array_equal(hist.sum(axis=1), np.repeat(c_hist.sum(axis=1), 2))
@@ -440,12 +439,11 @@ def test_two_runners_on_the_card_equal_one(dev, tmp_path):
         os.symlink(os.path.join(smoke.DATA_DIR, name), paths[-1])
     one = pr.analyze_library(paths, runner=pr.Runner(dev), album=True, max_batch=2)
     runners = [pr.Runner(dev), pr.Runner(dev)]
-    ek.COUNT.reset()
-    hk.COUNT.reset()
-    two = pr.analyze_library(paths, runners=runners, album=True, max_batch=2)
+    with tracing.recording():
+        two = pr.analyze_library(paths, runners=runners, album=True, max_batch=2)
     batches = [len(r.timings) for r in runners]
     assert min(batches) >= 1 and sum(batches) == 6
-    assert (ek.COUNT.kernel, hk.COUNT.kernel, ek.COUNT.plain, hk.COUNT.plain) == (6, 6, 0, 0)
+    assert _counts("entropy_decode_rows") == _counts("requant_stereo") == (6, 0)
     for a, b in zip(two.tracks, one.tracks):
         assert a.ok and a.result == b.result and np.array_equal(a.histogram, b.histogram)
     assert np.array_equal(two.album_histogram, one.album_histogram)
@@ -466,9 +464,9 @@ def test_two_runners_on_the_card_equal_one(dev, tmp_path):
 def test_dryruns_on_the_card(dev, capfd):
     from mp3rgain_tpu_torch.parallel import dryrun
 
-    cc.COUNT.reset()
-    dryrun.dryrun_multichip(2)
-    assert cc.COUNT.kernel == 3 and cc.COUNT.plain == 0
+    with tracing.recording():
+        dryrun.dryrun_multichip(2)
+    assert _counts("class_core_gemm") == (3, 0)
     dryrun.dryrun_multihost(2, timeout_s=300)
     assert capfd.readouterr().out.count("album union bit-equal over gloo") == 2
 
@@ -511,9 +509,10 @@ def test_entry_on_the_card_matches_the_cpu(dev):
 
     fn, args = entry.entry()
     assert all(a.device.type == "cuda" for a in args)
-    cc.COUNT.reset()
-    hist, idx, peak = (t.cpu().numpy() for t in fn(*args))
-    assert cc.COUNT.kernel >= 1 and cc.COUNT.plain == 0
+    with tracing.recording():
+        hist, idx, peak = (t.cpu().numpy() for t in fn(*args))
+    launches, plain = _counts("class_core_gemm")
+    assert launches >= 1 and plain == 0
     c_fn, c_args = entry.entry(device="cpu")
     c_hist, c_idx, c_peak = (t.numpy() for t in c_fn(*c_args))
     assert np.array_equal(hist.sum(axis=1), c_hist.sum(axis=1))

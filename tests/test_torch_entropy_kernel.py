@@ -23,7 +23,7 @@ from mp3rgain_tpu.decode import entropy_kernel as jek  # noqa: E402
 from mp3rgain_tpu.decode import frontend as fe  # noqa: E402
 from mp3rgain_tpu.parallel import runner as jpr  # noqa: E402
 from mp3rgain_tpu.testing import craft, fixtures  # noqa: E402
-from mp3rgain_tpu_torch import _build  # noqa: E402
+from mp3rgain_tpu_torch import _build, tracing  # noqa: E402
 from mp3rgain_tpu_torch.decode import entropy_kernel as ek  # noqa: E402
 from mp3rgain_tpu_torch.parallel import runner as pr  # noqa: E402
 
@@ -255,9 +255,9 @@ def test_decode_rows_matches_jax_composition(name, channel_major, luts):
                                 g_max=g_max, n_channels=nch,
                                 channel_major=channel_major)
     assert n_rows == len(counts) * g_max > counts.sum()  # padding slots exist
-    before = ek.COUNT.plain
-    got = ek.decode_rows(*_tensors(p), luts, dest, n_rows)
-    assert ek.COUNT.plain == before + 1
+    with tracing.recording():
+        got = ek.decode_rows(*_tensors(p), luts, dest, n_rows)
+    assert tracing.counter("plain.entropy_decode_rows") == 1
     assert [t.dtype for t in got] == [torch.int16, torch.int32, torch.int32]
     for g, w, what in zip(got, want[channel_major], ("spec", "big_end", "count1_end")):
         assert g.shape == w.shape, (name, what)
@@ -315,11 +315,10 @@ def test_wrapper_rejects_bad_inputs(luts):
     with pytest.raises(ValueError, match="n_rows"):
         ek.decode_rows(scalars, buf, meta, luts, dest, -1)
     # A device that is neither CPU nor CUDA raises; nothing falls back.
-    before = ek.COUNT.plain
-    with pytest.raises(ValueError, match="unsupported device"):
+    with tracing.recording(), pytest.raises(ValueError, match="unsupported device"):
         ek.decode_rows(*(t.to("meta") for t in (scalars, buf, meta)), luts,
                        dest.to("meta"), p.n)
-    assert ek.COUNT.plain == before
+    assert tracing.counter("plain.entropy_decode_rows") == 0
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

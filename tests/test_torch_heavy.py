@@ -29,7 +29,7 @@ from mp3rgain_tpu.decode import synthesis as jsyn  # noqa: E402
 from mp3rgain_tpu.parallel import runner as jpr  # noqa: E402
 from mp3rgain_tpu.testing import craft, fixtures, mpg123  # noqa: E402
 from mp3rgain_tpu.utils import bufpool  # noqa: E402
-from mp3rgain_tpu_torch.decode import class_core as cc  # noqa: E402
+from mp3rgain_tpu_torch import tracing  # noqa: E402
 from mp3rgain_tpu_torch.decode import synthesis as syn  # noqa: E402
 from mp3rgain_tpu_torch.ops import histogram as hi  # noqa: E402
 from mp3rgain_tpu_torch.parallel import runner as pr  # noqa: E402
@@ -179,9 +179,9 @@ def test_batch_from_unpacked_fields_match_jax(clip_paths, name):
 @pytest.mark.parametrize("name", sorted(CLIPS))
 def test_decode_file_matches_jax_and_mpg123(clip_paths, name):
     path = clip_paths[name]
-    before = cc.COUNT.plain
-    mine, sr = syn.decode_file(path, device="cpu")
-    assert cc.COUNT.plain == before + 1
+    with tracing.recording():
+        mine, sr = syn.decode_file(path, device="cpu")
+    assert tracing.counter("plain.class_core_gemm") == 1
     ref, sr_ref = jsyn.decode_file(path)
     oracle, sr_m = mpg123.decode_file(path)
     oracle = oracle.T
@@ -229,9 +229,9 @@ def test_analysis_core_matches_jax(batches, name):
     ups = [fe.unpack_data(d) for d in datas]
     args = [pr._to_device(a, CPU) for a in pr.prepare_batch_arrays(ups, nch)]
     tail = pr.LightTail(sr, nch)
-    before = cc.COUNT.plain
-    hist, loud_idx, peak = pr.analysis_core(tail, *args)
-    assert cc.COUNT.plain == before + 1
+    with tracing.recording():
+        hist, loud_idx, peak = pr.analysis_core(tail, *args)
+    assert tracing.counter("plain.class_core_gemm") == 1
     assert hist.dtype == torch.int32 and loud_idx.dtype == torch.int32
     assert hist.shape == (len(args[-1]), hi.HISTOGRAM_SIZE)
     _assert_close_to_jax(hist.numpy(), loud_idx.numpy(), peak.numpy(), want, len(ups))
@@ -243,7 +243,7 @@ def test_analysis_core_matches_jax(batches, name):
     assert np.array_equal(np.array([round(v * 100) + 2000 for v in louds]),
                           loud_idx[: len(ups)].numpy())
     assert np.array_equal(peaks, peak[: len(ups)].numpy())
-    assert set(runner.last_timings) == {"route", "prep_s", "h2d_s", "device_ms"}
+    assert set(runner.timings[-1]) == {"route", "prep_s", "h2d_s", "device_ms"}
 
 
 @pytest.mark.parametrize("name", sorted(BATCHES))

@@ -22,6 +22,7 @@ from mp3rgain_tpu.decode import hybrid_kernel as jhk  # noqa: E402
 from mp3rgain_tpu.decode.format_tables import SR_ROW  # noqa: E402
 from mp3rgain_tpu.testing import craft, fixtures  # noqa: E402
 from mp3rgain_tpu.utils import bufpool  # noqa: E402
+from mp3rgain_tpu_torch import tracing  # noqa: E402
 from mp3rgain_tpu_torch.decode import entropy_kernel as ek  # noqa: E402
 from mp3rgain_tpu_torch.decode import hybrid_kernel as hk  # noqa: E402
 from mp3rgain_tpu_torch.parallel import runner as pr  # noqa: E402
@@ -86,9 +87,9 @@ CASES = {
 def test_plain_requant_stereo_matches_jax(case):
     spec, scf, gmeta, sr_row = k2_inputs(CASES[case]())
     nch, r, _ = spec.shape
-    before = hk.COUNT.plain
-    got = hk.fused_requant_stereo(spec, scf, gmeta, hk.HybridTables(sr_row))
-    assert hk.COUNT.plain == before + 1
+    with tracing.recording():
+        got = hk.fused_requant_stereo(spec, scf, gmeta, hk.HybridTables(sr_row))
+    assert tracing.counter("plain.requant_stereo") == 1
     # The JAX kernel takes 256-row tiles: pad with zero rows (zero output).
     rp = -(-r // jhk.TILE) * jhk.TILE
     pad = ((0, 0), (0, rp - r), (0, 0))
@@ -191,8 +192,7 @@ def test_wrapper_rejects_bad_inputs():
         hk.fused_requant_stereo(spec, scf.to(torch.int32), gmeta, tables)
     with pytest.raises(ValueError, match="gmeta"):
         hk.fused_requant_stereo(spec, scf, gmeta[:, :-1], tables)
-    before = hk.COUNT.plain
-    with pytest.raises(ValueError, match="unsupported device"):
+    with tracing.recording(), pytest.raises(ValueError, match="unsupported device"):
         hk.fused_requant_stereo(spec.to("meta"), scf.to("meta"),
                                 gmeta.to("meta"), tables)
-    assert hk.COUNT.plain == before
+    assert tracing.counter("plain.requant_stereo") == 0

@@ -20,6 +20,7 @@ import torch
 pytest.importorskip("jax")
 
 from mp3rgain_tpu.parallel import runner as jpr  # noqa: E402
+from mp3rgain_tpu_torch import tracing  # noqa: E402
 from mp3rgain_tpu_torch.ops import histogram as hi  # noqa: E402
 from mp3rgain_tpu_torch.parallel import runner as pr  # noqa: E402
 
@@ -164,10 +165,12 @@ def _flaky(runner, fails_above: int, error=None):
 def test_oom_halves_and_retries_with_identical_results(library, port_album):
     runner = pr.Runner("cpu")
     sizes = _flaky(runner, fails_above=2)
-    res = pr.analyze_library(library, runner=runner, album=True,
-                             pressure_backoff_s=0)
+    with tracing.recording():
+        res = pr.analyze_library(library, runner=runner, album=True,
+                                 pressure_backoff_s=0)
     # The batch of 4 fails, is tried once more whole, then runs as 2 + 2.
     assert sorted(sizes) == [1, 1, 2, 2, 4, 4]
+    assert (tracing.counter("oom.retries"), tracing.counter("tracks.isolated")) == (2, 0)
     assert_equal(res, port_album, "halved after out-of-memory")
     assert np.array_equal(res.album_histogram, port_album.album_histogram)
 
@@ -193,8 +196,11 @@ def test_a_track_that_always_runs_out_of_memory_is_isolated(library, port_album)
         return real(prepared, **kw)
 
     runner.launch = flaky
-    res = pr.analyze_library(library, runner=runner, album=True,
-                             pressure_backoff_s=0)
+    with tracing.recording():
+        res = pr.analyze_library(library, runner=runner, album=True,
+                                 pressure_backoff_s=0)
+    # Out of memory as dealt and once more alone: two retries, then isolated.
+    assert (tracing.counter("oom.retries"), tracing.counter("tracks.isolated")) == (2, 1)
     bad = res.tracks[2]
     assert not bad.ok and "under pressure" in bad.error and "out of memory" in bad.error
     rest = [i for i in range(len(library)) if i != 2]

@@ -250,7 +250,7 @@ def test_sharded_aac_dispatch_equals_single_and_matches_jax(aac_streams):
     for a, b in zip(single, sharded):
         assert a.dtype == b.dtype and np.array_equal(a, b)
     assert [len(r.timings) for r in group.runners] == [2, 1]
-    assert group.runners[1].last_timings["route"] == "aac_q"
+    assert group.runners[1].timings[-1]["route"] == "aac_q"
     by_devices = aac.analyze_batch_q_sharded(ups, sr, nch, devices=["cpu", "cpu"])
     for a, b in zip(single, by_devices):
         assert np.array_equal(a, b)
@@ -311,7 +311,7 @@ def test_runner_records_are_bounded(mp3_streams, monkeypatch):
     u = fe.unpack_data_light_packed(mp3_streams[0])
     for _ in range(5):
         runner.analyze_unpacked_light([u], 44100, 2)
-    assert len(runner.timings) == 3 and runner.timings[-1] is runner.last_timings
+    assert len(runner.timings) == 3 and runner.timings[-1]["route"] == "light"
     runner.busy_ms.extend((float(i), float(i + 1)) for i in range(20))
     assert len(runner.busy_ms) == 6
     assert pr.Runner("cpu").timings.maxlen == 3

@@ -24,7 +24,7 @@ from mp3rgain_tpu.decode import frontend as fe  # noqa: E402
 from mp3rgain_tpu.parallel import runner as jpr  # noqa: E402
 from mp3rgain_tpu.testing import fixtures  # noqa: E402
 from mp3rgain_tpu.utils import bufpool  # noqa: E402
-from mp3rgain_tpu_torch.decode import class_core as cc  # noqa: E402
+from mp3rgain_tpu_torch import tracing  # noqa: E402
 from mp3rgain_tpu_torch.decode import entropy_kernel as ek  # noqa: E402
 from mp3rgain_tpu_torch.decode import hybrid_kernel as hk  # noqa: E402
 from mp3rgain_tpu_torch.ops import histogram as hi  # noqa: E402
@@ -95,10 +95,11 @@ def test_light_tail_matches_jax(batches, name, fused):
     args = [pr._to_device(a, cpu) for a in host]
     bufpool.give(prep.buf, prep.meta, rest[1], rest[6])
     tail = pr.LightTail(sr, nch)
-    counts0 = (ek.COUNT.plain, hk.COUNT.plain)
-    hist, loud_idx, peak = pr.analysis_core_light(
-        tail, *args, nb=prep.nb, g_max=g_max)
-    assert (ek.COUNT.plain, hk.COUNT.plain) == (counts0[0] + 1, counts0[1] + 1)
+    with tracing.recording():
+        hist, loud_idx, peak = pr.analysis_core_light(
+            tail, *args, nb=prep.nb, g_max=g_max)
+    assert (tracing.counter("plain.entropy_decode_rows"),
+            tracing.counter("plain.requant_stereo")) == (1, 1)
     assert hist.dtype == torch.int32 and loud_idx.dtype == torch.int32
     assert hist.shape == (len(rest[0]), hi.HISTOGRAM_SIZE)
     _assert_close_to_jax(hist.numpy(), loud_idx.numpy(), peak.numpy(),
@@ -117,10 +118,11 @@ def test_light_tail_unfused_matches_jax(batches, name):
     dest, n_rows = pr.dest_rows(args[3], args[4], g_max=g_max, n_channels=nch,
                                 channel_major=False)
     rows = ek.decode_rows(*args[:3], tail.luts, dest, n_rows)
-    counts0 = (hk.COUNT.plain, cc.COUNT.plain)
-    hist, loud_idx, peak = pr.light_tail(tail, *rows, *args[4:],
-                                         nb=prep.nb, g_max=g_max, fused=False)
-    assert (hk.COUNT.plain, cc.COUNT.plain) == (counts0[0], counts0[1] + 1)
+    with tracing.recording():
+        hist, loud_idx, peak = pr.light_tail(tail, *rows, *args[4:],
+                                             nb=prep.nb, g_max=g_max, fused=False)
+    assert (tracing.counter("plain.requant_stereo"),
+            tracing.counter("plain.class_core_gemm")) == (0, 1)
     _assert_close_to_jax(hist.numpy(), loud_idx.numpy(), peak.numpy(),
                          jax_out[False], len(ups))
 
@@ -174,7 +176,7 @@ def test_runner_matches_jax(batches, name):
     idx = np.array([round(v * 100) + 2000 for v in louds])
     for fused in (False, True):
         _assert_close_to_jax(hist, idx, peaks, jax_out[fused], bsz)
-    t = runner.last_timings
+    t = runner.timings[-1]
     assert set(t) == {"route", "prep_s", "h2d_s", "device_ms"} and t["route"] == "light"
     assert list(runner.timings) == [t]
     assert all(t[k] >= 0 for k in ("prep_s", "h2d_s", "device_ms"))
