@@ -4,14 +4,18 @@
     python3 chip_smoke.py
 
 Builds the port's host library (g++, mp3rgain_tpu_torch/_native) and the
-three hand-written CUDA C++ kernels from the sources in this checkout with
+five hand-written CUDA C++ kernels from the sources in this checkout with
 nvcc, one process per source, all started together with the g++ build:
 the Huffman decode K1 (csrc/entropy_decode.cu, which writes each spectrum
 straight into the row its consumer reads), the requantize + stereo pass
-K2 (csrc/requant_stereo.cu) and the split-bf16 class-core GEMM K3
-(csrc/class_core_gemm.cu). Holds each against its plain PyTorch version
-on the card and times it beside its bound (and K3 beside one cuBLAS call
-computing the same product, which the port never calls), then sends
+K2 (csrc/requant_stereo.cu), the split-bf16 class-core GEMM K3
+(csrc/class_core_gemm.cu), the hybrid synthesis K4
+(csrc/hybrid_synthesis.cu) and the overlap-add + polyphase synthesis K5
+(csrc/overlap_polyphase.cu). Holds each against its plain PyTorch version
+on the card and times it beside its bound (K3 beside one cuBLAS call
+computing the same product, K4 and K5 beside the dense torch.matmul
+products of their plain versions, at a 640,000-row batch; the port never
+calls those on the card), then sends
 hostile input through them (seeded byte flips, truncations and splices of
 the committed clips and crafted streams, and an AAC stream whose noise
 energies overflow float32: K1, K2 and K3 against their plain versions on
@@ -20,7 +24,7 @@ CPU, scan_files with the mutated files among the library's), so that every
 later phase runs after them in the same process; then runs the
 port's two routes over 64 copies of a 60 s, 44.1 kHz joint-stereo
 192 kbps track, the JAX package's bench batch: the light main path
-(Runner.analyze_unpacked_light, K1 + K2) and the host-decoded route
+(Runner.analyze_unpacked_light, K1, K2, K4, K5) and the host-decoded route
 (Runner.analyze_unpacked, K3), each with the launch counts set to 0 just
 before it and read just after; the light device phase split by stage
 (CUDA events, median of 3); then the unfused light tail against the
@@ -37,7 +41,7 @@ library scan, this port's main path for a library: scan.scan_files over
 64 of a 3 s 22.05 kHz mono clip, one file of seeded random bytes, one
 zero-payload ADTS file, 128 copies of the 60 s M4A and 64 of a 3 s
 transient M4A) on the pipelined Runner, every copy held to its
-single-track result, the K1/K2 launches counted per MP3 device batch, the
+single-track result, the K1/K2/K4/K5 launches counted per MP3 device batch, the
 resume from its manifest, and cli.main -a over 160 of the files; then
 cli.main -r and -x over 15 files, the per-track path, on the shared
 Runner and with a new Runner per file; then the data-parallel layer on the
@@ -67,8 +71,8 @@ streams from the committed clips on this host).
 Every check raises on failure; there is no CPU branch.
 Output, one phase per line:
 
-  device / nvidia-smi name and power limit / build seconds and K1/K2/K3
-  registers, shared memory and spills / K1, K2 and K3 agreement, times
+  device / nvidia-smi name and power limit / build seconds and K1-K5
+  registers, shared memory and spills / K1 to K5 agreement, times
   and bounds / hostile input: MP3 raw-bits, MP3 host-decoded, AAC q
   route, scan / light slice launch counts, CPU agreement / light stage
   split / heavy slice launch counts, CPU and light agreement, light
@@ -78,7 +82,7 @@ Output, one phase per line:
   decode_file, byte surgery, peak contract, entry(), the phase's wall /
   real_library: one line per rate-matrix track and route, one per ladder
   track, the library line, the phase's wall and launches / times / a
-  JSON line of per-kernel results (K1/K2 launches from the library scan,
+  JSON line of per-kernel results (K1/K2/K4/K5 launches from the library scan,
   and each kernel's launches in the real_library phase) /
   last line {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -107,6 +111,8 @@ PROBE_ROWS = 294_912  # the TPU probe's R, per channel
 # operations over the peak rate of their type.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12  # FFMA outside the tensor cores (K4, K5)
+SYNTH_ROWS = 640_000  # K4 and K5 at the library scan's rows cap: 2 x 128 x 2,500
 
 
 class Launches:
@@ -140,6 +146,15 @@ class Launches:
 K1 = Launches("entropy_decode_rows")
 K2 = Launches("requant_stereo")
 K3 = Launches("class_core_gemm")
+K4 = Launches("hybrid_synthesis")
+K5 = Launches("overlap_polyphase")
+KERNELS = (K1, K2, K3, K4, K5)
+LIGHT = (K1, K2, K4, K5)  # the kernels of every MP3 light batch
+
+
+def plain_calls() -> int:
+    """Plain-version calls of every kernel since its last reset."""
+    return sum(c.plain for c in KERNELS)
 
 
 def check(cond: bool, what: str) -> None:
@@ -151,10 +166,12 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound_of(n_bytes: float, flops: float = 0.0) -> tuple[float, str]:
-    """(bound_ms, bound_by) for n_bytes of traffic and flops of bf16 MMA."""
+def bound_of(n_bytes: float, flops: float = 0.0,
+             flops_per_s: float = BF16_FLOPS_PER_S) -> tuple[float, str]:
+    """(bound_ms, bound_by) for n_bytes of traffic and flops at flops_per_s
+    (bf16 MMA unless given)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 LIBRARY_SEED = 5
@@ -222,7 +239,7 @@ def library_phase(dev, card, bench_u, bench_loud, bench_peak, bench_windows, cli
     mono clip, 128 of the 60 s M4A and 64 of the 3 s transient M4A, as
     symlinks; a file of seeded random bytes; a zero-payload ADTS file), its
     resume from the manifest, and cli.main -a over 160 of the files.
-    Returns the scan's K1/K2 launch counts."""
+    Returns the scan's K1/K2/K4/K5 launch counts."""
     import contextlib
     import io
     import shutil
@@ -263,7 +280,7 @@ def library_phase(dev, card, bench_u, bench_loud, bench_peak, bench_windows, cli
             first_done.setdefault(os.path.splitext(path)[1], time.perf_counter())
 
         torch.cuda.reset_peak_memory_stats()
-        for c in (K1, K2, K3):
+        for c in KERNELS:
             c.reset()
         torch.cuda.set_sync_debug_mode("warn")
         try:
@@ -282,9 +299,8 @@ def library_phase(dev, card, bench_u, bench_loud, bench_peak, bench_windows, cli
                 control_seen = len(caught) > n_scan
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        launches = {"entropy_decode_rows": K1.kernel,
-                    "requant_stereo": K2.kernel}
-        plain = K1.plain + K2.plain + K3.plain
+        launches = {c.name: c.kernel for c in LIGHT}
+        plain = plain_calls()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         timings = list(runner.timings)
         busy = list(runner.busy_ms)
@@ -317,9 +333,9 @@ def library_phase(dev, card, bench_u, bench_loud, bench_peak, bench_windows, cli
         check(mp3_batches + aac_batches == n_batches
               and aac_batches >= -(-(n_aac + 1) // (4 * scan.BATCH_THRESHOLD)),
               f"routes of the {n_batches} batches: {[t['route'] for t in timings]}")
-        check(launches["entropy_decode_rows"] == mp3_batches
-              and launches["requant_stereo"] == mp3_batches,
-              f"K1 and K2 launched once per MP3 device batch ({launches}, {mp3_batches})")
+        check(all(v == mp3_batches for v in launches.values()),
+              f"K1, K2, K4 and K5 launched once per MP3 device batch ({launches}, "
+              f"{mp3_batches})")
         check(plain == 0, f"no plain-version calls on CUDA ({plain})")
 
         # Every copy against its reference.
@@ -554,7 +570,7 @@ def hostile_phase(dev, card, luts, clips):
             mp3_host_fail.append(name)
         else:
             groups.setdefault((u.sample_rate, u.n_channels), []).append(name)
-    worst = {"k2_rel": 0.0, "k2_nonfinite": 0, "k3_rel": 0.0, "light_peak": 0.0,
+    worst = {"k2_rel": 0.0, "k2_nonfinite": 0, "k45_rel": 0.0, "k3_rel": 0.0, "light_peak": 0.0,
              "heavy_peak": 0.0, "valid_rows": 0}
     k3_calls = 0
 
@@ -610,7 +626,25 @@ def hostile_phase(dev, card, luts, clips):
             f"K2 on the {sr} Hz x {nch} mutated batch")
         worst["k2_rel"] = max(worst["k2_rel"], rel)
         worst["k2_nonfinite"] += nonfin
-        del batch, rows, rows_cm, cm
+        # K4 on the rows whose spectra are finite (the dense products spread
+        # a non-finite line over the whole row, the kernel over its
+        # subband), K5 on the plain hybrid outputs with non-finite values
+        # zeroed; each against its plain version.
+        xr = hk.fused_requant_stereo_reference(*cm, tail.hybrid)
+        keep = torch.isfinite(xr).all(dim=2).all(dim=0)
+        xr_f, gm_f = xr[:, keep].contiguous(), cm[2][:, keep].contiguous()
+        rel4, _ = close_with_nonfinite(
+            hk.hybrid_synthesis(xr_f, gm_f, tail.hybrid),
+            hk.hybrid_gemm(xr_f, gm_f, tail.hybrid), K2_RTOL, K2_ATOL_REL,
+            f"K4 on the {sr} Hz x {nch} mutated batch")
+        z = torch.nan_to_num(hk.hybrid_gemm(xr, cm[2], tail.hybrid), 0.0, 0.0, 0.0)
+        z = z.view(nch, -1, g_max // nch, 1152)
+        rel5, _ = close_with_nonfinite(
+            syn.overlap_polyphase(z, tail.decode),
+            syn.overlap_polyphase_reference(z, tail.decode), K2_RTOL, K2_ATOL_REL,
+            f"K5 on the {sr} Hz x {nch} mutated batch")
+        worst["k45_rel"] = max(worst["k45_rel"], rel4, rel5)
+        del batch, rows, rows_cm, cm, xr, xr_f, gm_f, z
 
         # The light route against the CPU run.
         hist, louds, peaks = runner.analyze_unpacked_light(ups, sr, nch)
@@ -658,7 +692,7 @@ def hostile_phase(dev, card, luts, clips):
           f"(no frame kept); K1 exactly its plain version and the host decoder on "
           f"{worst['valid_rows']} valid granules; K2 max rel err {worst['k2_rel']:.2e} "
           f"(rtol {K2_RTOL}), {worst['k2_nonfinite']} non-finite values in the plain "
-          f"version's places; light route vs CPU: windows and loudness equal, max peak "
+          f"version's places; K4 and K5 max rel err {worst['k45_rel']:.2e}; light route vs CPU: windows and loudness equal, max peak "
           f"rel diff {worst['light_peak']:.2e}", flush=True)
     print(f"hostile mp3 host-decoded {card}: the same {n_dev} files, {k3_calls} K3 calls "
           f"held to the plain version, max rel err {worst['k3_rel']:.2e} (rtol {K3_RTOL}); "
@@ -859,7 +893,7 @@ def aac_phase(dev, card, runner, mp3_clip):
         aac.analyze_batch_q([uq] * BATCH_TRACKS, 44100, 2, runner=runner)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in (K1, K2, K3):
+    for c in KERNELS:
         c.reset()
     t0 = time.perf_counter()
     hist, louds, peaks = aac.analyze_batch_q([uq] * BATCH_TRACKS, 44100, 2, runner=runner)
@@ -874,9 +908,8 @@ def aac_phase(dev, card, runner, mp3_clip):
           and int(np.abs(np.array([_index(v) for v in louds]) - _index(louds[0])).max()) <= 1
           and bool(np.allclose(peaks, peaks[0], rtol=1e-5)),
           "the 64 copies agree with each other")
-    check(K1.kernel + K2.kernel + K3.kernel == 0
-          and K1.plain + K2.plain + K3.plain == 0,
-          "the AAC path reaches none of K1, K2, K3 nor their plain versions")
+    check(sum(c.kernel for c in KERNELS) == 0 and plain_calls() == 0,
+          "the AAC path reaches none of K1 to K5 nor their plain versions")
     prepared = runner.prepare_aac_q([uq] * BATCH_TRACKS, 44100, 2)
     rows = prepared.arrays[0].shape[0] * prepared.arrays[0].shape[1]
     upload_mb = sum(a.nbytes for a in prepared.arrays) / 1e6
@@ -910,7 +943,7 @@ def aac_phase(dev, card, runner, mp3_clip):
         vs_cpu.append(f"{name} index diff {d_idx}, peak rel diff "
                       f"{abs(g_peaks[0] / c_peaks[0] - 1):.1e}")
     print(f"aac slice: Runner q route {BATCH_TRACKS} x {track_s:.2f} s on {dev}: {rows} "
-          f"padded frame-channel rows, upload {upload_mb:.1f} MB, K1/K2/K3 launches 0; "
+          f"padded frame-channel rows, upload {upload_mb:.1f} MB, K1 to K5 launches 0; "
           f"track 0 gain {64.82 - louds[0]:.2f} dB, peak {peaks[0]:.6f}, windows "
           f"{int(hist[0].sum())}; against the f16 route on the card: max loudness diff "
           f"{d_loud:.3f} dB, max peak rel diff {d_peak:.1e}; against the CPU (q route): "
@@ -1099,7 +1132,7 @@ def multi_runner_phase(dev, card, bench_u, clips, aac_clips):
     from mp3rgain_tpu_torch.parallel import runner as pr
 
     bench_path, mono_path, transient_path = clips
-    counters = (K1, K2, K3)
+    counters = KERNELS
     one = [pr.Runner(dev)]
     two = [pr.Runner(dev), pr.Runner(dev)]
     for r in one + two:
@@ -1128,7 +1161,7 @@ def multi_runner_phase(dev, card, bench_u, clips, aac_clips):
             busy += [(x + off, y + off) for x, y in r.busy_ms]
         routes = [[t["route"] for t in r.timings] for r in runners]
         return {"mp3": mp3, "aac": a, "wall": wall, "busy": _union_ms(busy) / (wall * 1e3),
-                "routes": routes, "k1": K1.kernel, "k2": K2.kernel,
+                "routes": routes, "light": {c.name: c.kernel for c in LIGHT},
                 "plain": sum(c.plain for c in counters),
                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
@@ -1151,8 +1184,8 @@ def multi_runner_phase(dev, card, bench_u, clips, aac_clips):
     for n, run in runs:
         batches = sum(len(r) for r in run["routes"])
         light = sum(route == "light" for r in run["routes"] for route in r)
-        check(run["k1"] == light and run["k2"] == light and light > 0,
-              f"{n} Runner(s): K1 {run['k1']} and K2 {run['k2']} launches equal the "
+        check(all(v == light for v in run["light"].values()) and light > 0,
+              f"{n} Runner(s): K1, K2, K4 and K5 launches {run['light']} equal the "
               f"{light} MP3 batches")
         check(run["plain"] == 0, f"{n} Runner(s): plain calls {run['plain']}")
         check(all(len(r) > 0 for r in run["routes"]) and batches > light,
@@ -1195,9 +1228,10 @@ def multi_runner_phase(dev, card, bench_u, clips, aac_clips):
             check(a.shape == b.shape and bool((a == b).all()),
                   f"sharded {label} dispatch: {what} equals the single dispatch exactly")
         want_k = (2 + 2 * 2) if label == "light" else 0  # single x2, two shards x2
-        check(K1.kernel == want_k and K2.kernel == want_k
+        check(all(c.kernel == want_k for c in LIGHT)
               and sum(c.plain for c in counters) == 0,
-              f"sharded {label}: K1 {K1.kernel}, K2 {K2.kernel} launches")
+              f"sharded {label}: K1, K2, K4, K5 launches "
+              f"{[c.kernel for c in LIGHT]}, {want_k} wanted")
         sharded[label] = walls
     for c in counters:
         c.reset()
@@ -1220,10 +1254,10 @@ def multi_runner_phase(dev, card, bench_u, clips, aac_clips):
           f"({len(mp3_paths)} MP3, {len(aac_paths)} M4A, {audio_s / 3600:.3f} audio-hours), "
           f"scans in turns (one, two, two, one Runner on {dev}): {fmt(1)}; {fmt(2)}; every "
           f"track's histogram, loudness and peak exactly equal in all four scans, album "
-          f"histograms equal the host sums, K1 = K2 launches = MP3 batches "
-          f"({runs[1][1]['k1']}), plain calls 0; one {BATCH_TRACKS}-track batch split over "
-          f"the two Runners against the single dispatch (exactly equal), walls in turns "
-          f"(single, sharded, sharded, single): "
+          f"histograms equal the host sums, K1 = K2 = K4 = K5 launches = MP3 batches "
+          f"({runs[1][1]['light']['entropy_decode_rows']}), plain calls 0; one "
+          f"{BATCH_TRACKS}-track batch split over the two Runners against the single "
+          f"dispatch (exactly equal), walls in turns (single, sharded, sharded, single): "
           + "; ".join(f"{k} single {w['single'][0]:.3f}, {w['single'][1]:.3f} s, sharded "
                       f"{w['sharded'][0]:.3f}, {w['sharded'][1]:.3f} s"
                       for k, w in sharded.items())
@@ -1484,11 +1518,8 @@ def oracle_phase(dev, card):
         return os.path.join(smoke.DATA_DIR, name)
 
     def reset():
-        for c in (K1, K2, K3):
+        for c in KERNELS:
             c.reset()
-
-    def plain_calls():
-        return K1.plain + K2.plain + K3.plain
 
     def hold(what, gain, peak, ref_gain, ref_peak, pcm_of):
         diff = gain - ref_gain
@@ -1503,7 +1534,7 @@ def oracle_phase(dev, card):
               f"({pcm_of}), diff {diff:+.4f} dB; peak {peak:.6f} vs {ref_peak:.6f} "
               f"(rel {rel:.2e})", flush=True)
 
-    # (a) MP3: each committed clip on the light route (K1 + K2) and the
+    # (a) MP3: each committed clip on the light route (K1, K2, K4, K5) and the
     # host-decoded route (K3), against the reference on the port's CPU
     # decode; the card's decode against the CPU's.
     mp3 = [smoke.BENCH_TRACK, smoke.MONO_TRACK, smoke.TRANSIENT_TRACK, smoke.HOT_TRACK]
@@ -1516,8 +1547,8 @@ def oracle_phase(dev, card):
         light = fe.unpack_data_light_packed(data)
         reset()
         _, louds, peaks = runner.analyze_unpacked_light([light], sr, light.n_channels)
-        check(K1.kernel >= 1 and K2.kernel >= 1 and plain_calls() == 0,
-              f"{name}: light route launched K1 and K2, no plain call")
+        check(all(c.kernel >= 1 for c in LIGHT) and plain_calls() == 0,
+              f"{name}: light route launched K1, K2, K4 and K5, no plain call")
         hold(f"{name} light route", PINK_REF - float(louds[0]), float(peaks[0]),
              ref_g, ref_p, "CPU decode")
         full = fe.unpack_data(data)
@@ -1782,7 +1813,7 @@ def real_library_phase(dev, card):
     (window count and loudness exact, peak rtol 2e-4; a window may change
     bins, since cuBLAS rounds a batch of other rows differently).
     The references decode and filter on the CPU in a pool of worker
-    processes while the card works. Returns the phase's K1/K2/K3 launches."""
+    processes while the card works. Returns the phase's K1 to K5 launches."""
     import multiprocessing
     import shutil
     import tempfile
@@ -1824,7 +1855,7 @@ def real_library_phase(dev, card):
 
     hook = torch.nn.modules.module.register_module_forward_pre_hook(on_iir)
     worst = {"db": 0.0, "peak": 0.0, "seg": 0.0}
-    for c in (K1, K2, K3):
+    for c in KERNELS:
         c.reset()
     root = tempfile.mkdtemp(prefix="mp3rgain-real-")
     workers = max(1, min(REAL_POOL, os.cpu_count() or 1))
@@ -2161,11 +2192,10 @@ def real_library_phase(dev, card):
         pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(root, ignore_errors=True)
 
-    launches = {"entropy_decode_rows": K1.kernel, "requant_stereo": K2.kernel,
-                "class_core_gemm": K3.kernel}
-    plain = K1.plain + K2.plain + K3.plain
+    launches = {c.name: c.kernel for c in KERNELS}
+    plain = plain_calls()
     check(all(v >= 1 for v in launches.values()) and plain == 0,
-          f"real_library: K1, K2 and K3 launched ({launches}), no plain call ({plain})")
+          f"real_library: K1 to K5 launched ({launches}), no plain call ({plain})")
     del runner
     torch.cuda.empty_cache()
     ref_s = [f.result()["s"] for f in futures.values()]
@@ -2235,16 +2265,18 @@ def main() -> None:
             # listed; K2 has one entry per channel count.
             entry = ("K1" if "entropy_decode_rows_kernel" in ln else
                      "K2" if "requant_stereo_kernel" in ln else
-                     "K3" if "class_core_gemm_wgmma" in ln else None)
+                     "K3" if "class_core_gemm_wgmma" in ln else
+                     "K4" if "hybrid_synthesis_kernel" in ln else
+                     "K5" if "overlap_polyphase_kernel" in ln else None)
         elif entry and ("registers" in ln or "spill" in ln):
             line = " ".join(ln.replace("ptxas info    :", "").split())
             if line not in resources.setdefault(entry, []):
                 resources[entry].append(line)
-    check(set(resources) == {"K1", "K2", "K3"},
-          f"ptxas reported K1, K2 and K3: {sorted(resources)}")
+    check(set(resources) == {"K1", "K2", "K3", "K4", "K5"},
+          f"ptxas reported K1 to K5: {sorted(resources)}")
     resources["K3"].append(f"{k3_smem} bytes dynamic smem")
     regs = [f"{k}: {', '.join(v)}" for k, v in sorted(resources.items())]
-    print(f"build: host library g++ {host['s']:.2f} s; K1 + K2 + K3 nvcc {nvcc_s:.2f} s "
+    print(f"build: host library g++ {host['s']:.2f} s; K1 to K5 nvcc {nvcc_s:.2f} s "
           f"({'; '.join(regs)})", flush=True)
 
     # --- 3. inputs -----------------------------------------------------------
@@ -2369,7 +2401,80 @@ def main() -> None:
           f"({gbytes / (k2_ms / 1e3):.0f} GB/s), plain {k2_plain_ms:.3f} ms, bound "
           f"{k2_bound[0]:.3f} ms ({k2_bound[1]}; {k2_bound[0] / k2_ms:.1%} of it) "
           f"{card}", flush=True)
+    # --- 5b. K4 and K5 at the rows cap: kernels against their plain versions ---
+    # K2's rows of the batch, repeated to SYNTH_ROWS (2 channels x 128 tracks
+    # x 2,500 granule-times, a library scan batch's size).
+    xr = hk.fused_requant_stereo(*cm, tail.hybrid)
+    idx = torch.arange(SYNTH_ROWS // 2, device=dev) % rows
+    xr, gm = xr[:, idx].contiguous(), cm[2][:, idx].contiguous()
     del cm, batch, dest
+    got = hk.hybrid_synthesis(xr, gm, tail.hybrid)
+    z = hk.hybrid_gemm(xr, gm, tail.hybrid)
+    torch.cuda.synchronize()
+    k4_scale = z.abs().max().item()
+    k4_err = (got - z).abs().max().item()
+    check(torch.allclose(got, z, rtol=K2_RTOL, atol=K2_ATOL_REL * k4_scale),
+          f"K4 within rtol {K2_RTOL}, atol {K2_ATOL_REL}*max|plain| at {SYNTH_ROWS} rows")
+    del got
+    z = z.view(2, 128, SYNTH_ROWS // 256, 1152)
+    got = syn.overlap_polyphase(z, tail.decode)
+    want = syn.overlap_polyphase_reference(z, tail.decode)
+    torch.cuda.synchronize()
+    k5_scale = want.abs().max().item()
+    k5_err = (got - want).abs().max().item()
+    check(torch.allclose(got, want, rtol=K2_RTOL, atol=K2_ATOL_REL * k5_scale),
+          f"K5 within rtol {K2_RTOL}, atol {K2_ATOL_REL}*max|plain| at {SYNTH_ROWS} rows")
+    del got, want
+    torch.cuda.empty_cache()
+
+    def dense_hybrid():
+        """The plain version's three torch.matmul products on operands
+        masked beforehand (not timed): its library calls alone."""
+        cls = gm[..., hk.GM_CLS : hk.GM_CLS + 1]
+        lane = torch.arange(576, device=dev)
+        ops = [(torch.where(cls == 0, xr, 0.0), tail.hybrid.cores2[0]),
+               (torch.where((cls == 1) | ((cls == 2) & (lane >= tail.hybrid.p)), xr, 0.0),
+                tail.hybrid.cores2[1]),
+               (torch.where(cls == 2, xr[..., :tail.hybrid.p], 0.0).contiguous(),
+                tail.hybrid.head)]
+        return lambda: [torch.matmul(a, b) for a, b in ops]
+
+    def dense_polyphase():
+        """The plain version's two torch.matmul products on out18 and its
+        shifted copy, made beforehand (not timed)."""
+        out18 = z[..., :576].clone()
+        out18[:, :, 1:] += z[:, :, :-1, 576:]
+        prev18 = torch.cat([torch.zeros_like(out18[:, :, :1]), out18[:, :, :-1]], dim=2)
+        return lambda: (torch.matmul(out18, tail.decode.synth_na),
+                        torch.matmul(prev18, tail.decode.synth_nb))
+
+    synth_ms = {}
+    for name, fn in (("K4", lambda: hk.hybrid_synthesis(xr, gm, tail.hybrid)),
+                     ("K4 plain", lambda: hk.hybrid_gemm(xr, gm, tail.hybrid)),
+                     ("K4 library", dense_hybrid()),
+                     ("K5", lambda: syn.overlap_polyphase(z, tail.decode)),
+                     ("K5 plain", lambda: syn.overlap_polyphase_reference(z, tail.decode)),
+                     ("K5 library", dense_polyphase())):
+        synth_ms[name] = cuda_ms(fn, 3 if " " in name else 10)
+        del fn
+        torch.cuda.empty_cache()
+    # Operations: K4 a subband's 36 x 18 map, 31 boundaries of 8 butterflies
+    # (4 ops each) and the window; K5 per slot the 64 x 32 matrixing and
+    # the 32 x 16 dewindow.
+    k4_bound = bound_of(nbytes(xr, gm) + SYNTH_ROWS * 1152 * 4,
+                        SYNTH_ROWS * (2 * 32 * 36 * 18 + 31 * 8 * 4 + 1152), F32_FLOPS_PER_S)
+    k5_bound = bound_of(nbytes(z) + SYNTH_ROWS * 576 * 4,
+                        SYNTH_ROWS * 18 * 2 * (64 * 32 + 32 * 16), F32_FLOPS_PER_S)
+    for k, bound, err, scale in (("K4", k4_bound, k4_err, k4_scale),
+                                 ("K5", k5_bound, k5_err, k5_scale)):
+        what = ("hybrid_synthesis" if k == "K4" else "overlap_polyphase")
+        print(f"{k} {what} (CUDA C++): {SYNTH_ROWS} rows, max_abs_err {err:.3e} of "
+              f"max|plain| {scale:.1f} (rtol {K2_RTOL}, atol {K2_ATOL_REL}*max|plain|); "
+              f"kernel {synth_ms[k]:.3f} ms, plain {synth_ms[k + ' plain']:.3f} ms, "
+              f"library (its torch.matmul products) {synth_ms[k + ' library']:.3f} ms, "
+              f"bound {bound[0]:.3f} ms ({bound[1]}; {bound[0] / synth_ms[k]:.1%} of it) "
+              f"{card}", flush=True)
+    del xr, gm, z
     torch.cuda.empty_cache()
 
     # --- 6. K3: CUDA kernel against the plain version -------------------------
@@ -2478,9 +2583,8 @@ def main() -> None:
         runner.analyze_unpacked_light([u] * BATCH_TRACKS, 44100, 2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K1.reset()
-    K2.reset()
-    K3.reset()
+    for c in KERNELS:
+        c.reset()
     # The lane-major decode and its unsort are off the main path now: make
     # any call of them fail the run (the spectrum row gathers are gone
     # from the code).
@@ -2494,12 +2598,12 @@ def main() -> None:
     finally:
         for f, fn in off_path.items():
             setattr(ek, f, fn)
-    counts = {"entropy_decode_rows": K1.kernel, "requant_stereo": K2.kernel}
-    plain_calls = K1.plain + K2.plain + K3.plain
+    counts = {c.name: c.kernel for c in LIGHT}
+    n_plain = plain_calls()
     timing = runner.timings[-1]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(all(v == 1 for v in counts.values()), f"K1 and K2 launched once: {counts}")
-    check(plain_calls == 0, f"no plain-version calls on CUDA ({plain_calls})")
+    check(all(v == 1 for v in counts.values()), f"K1, K2, K4 and K5 launched once: {counts}")
+    check(n_plain == 0, f"no plain-version calls on CUDA ({n_plain})")
     check(hist.shape == (BATCH_TRACKS, 12000), "histogram shape")
     check(bool(np.isfinite(louds).all() and np.isfinite(peaks).all()),
           "finite loudness and peak")
@@ -2513,7 +2617,7 @@ def main() -> None:
     check(bool(np.allclose(peaks[0], cpu_peaks[0], rtol=2e-4, atol=1e-6)),
           f"peak within rtol 2e-4 of CPU ({peaks[0]} vs {cpu_peaks[0]})")
     print(f"slice: Runner.analyze_unpacked_light {BATCH_TRACKS} x {track_s:.2f} s "
-          f"on {dev}: launches {counts}, plain calls {plain_calls}, unsort and "
+          f"on {dev}: launches {counts}, plain calls {n_plain}, unsort and "
           f"lane-major decode calls 0; track 0 "
           f"gain {64.82 - louds[0]:.2f} dB, peak {peaks[0]:.6f}, windows "
           f"{int(win_counts[0])} vs CPU gain {64.82 - cpu_louds[0]:.2f} dB, "
@@ -2556,14 +2660,13 @@ def main() -> None:
         runner.analyze_unpacked([full] * BATCH_TRACKS, 44100, 2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K1.reset()
-    K2.reset()
-    K3.reset()
+    for c in KERNELS:
+        c.reset()
     t0 = time.perf_counter()
     h_hist, h_louds, h_peaks = runner.analyze_unpacked([full] * BATCH_TRACKS, 44100, 2)
     h_wall_s = time.perf_counter() - t0
     h_counts = {"class_core_gemm": K3.kernel}
-    h_plain = K1.plain + K2.plain + K3.plain
+    h_plain = plain_calls()
     h_timing = runner.timings[-1]
     h_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(h_counts["class_core_gemm"] > 0, f"K3 launched on the heavy route: {h_counts}")
@@ -2667,7 +2770,9 @@ def main() -> None:
           f"real-time factor {audio_s / wall_s:.0f}x; device-only "
           f"{audio_s / dev_s:.0f}x; peak device memory "
           f"{peak_gb:.3f} GB; K1 {k1_ms:.3f} ms vs plain {k1_plain_ms:.1f} ms; "
-          f"K2 {k2_ms:.3f} ms vs plain {k2_plain_ms:.3f} ms", flush=True)
+          f"K2 {k2_ms:.3f} ms vs plain {k2_plain_ms:.3f} ms; K4 {synth_ms['K4']:.3f} ms, "
+          f"K5 {synth_ms['K5']:.3f} ms vs their torch.matmul products "
+          f"{synth_ms['K4 library']:.3f}, {synth_ms['K5 library']:.3f} ms", flush=True)
     print(f"times {card}: heavy slice wall {h_wall_s:.3f} s = host prep "
           f"{h_timing['prep_s']:.3f} s + staging and upload {h_timing['h2d_s']:.3f} s + "
           f"device {h_dev_s:.3f} s (sum {h_split:.3f}); real-time factor "
@@ -2695,6 +2800,14 @@ def main() -> None:
          "real_library_launches": real["requant_stereo"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None},
+        *({"name": name, "route": "cuda", "source": f"mp3rgain_tpu_torch/csrc/{name}.cu",
+           "replaces": None, "launches": lib["launches"][name],
+           "light_slice_launches": counts[name], "real_library_launches": real[name],
+           "max_abs_err": err, "rows": SYNTH_ROWS, "ms": synth_ms[k],
+           "plain_ms": synth_ms[k + " plain"], "bound_ms": bound[0], "bound_by": bound[1],
+           "library_ms": synth_ms[k + " library"]}
+          for k, name, err, bound in (("K4", "hybrid_synthesis", k4_err, k4_bound),
+                                      ("K5", "overlap_polyphase", k5_err, k5_bound))),
         {"name": "class_core_gemm", "route": "cuda",
          "source": "mp3rgain_tpu_torch/csrc/class_core_gemm.cu",
          "replaces": "tools/hk_dotprobe.py:22",

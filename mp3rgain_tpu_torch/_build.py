@@ -126,6 +126,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mg_cuda_class_core_gemm.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp]
     lib.mg_cuda_class_core_gemm_smem_bytes.restype = ctypes.c_int
     lib.mg_cuda_class_core_gemm_smem_bytes.argtypes = []
+    lib.mg_cuda_hybrid_synthesis.restype = ctypes.c_int
+    lib.mg_cuda_hybrid_synthesis.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, vp]
+    lib.mg_cuda_overlap_polyphase.restype = ctypes.c_int
+    lib.mg_cuda_overlap_polyphase.argtypes = [vp, vp, vp, vp, i, i, vp]
 
 
 def library() -> ctypes.CDLL:

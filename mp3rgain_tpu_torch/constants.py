@@ -62,15 +62,20 @@ def onehot_to_index(onehot: np.ndarray) -> np.ndarray:
     return np.where(nz.any(axis=1), idx, -1).astype(np.int32)
 
 
-def hybrid_state(arrays: dict) -> dict[str, torch.Tensor]:
-    """HybridTables buffers from _consts and natural_cores arrays."""
-    from .decode.hybrid_kernel import is_ratio_table, pack_class_words
+def hybrid_state(arrays: dict, sr_row: int) -> dict[str, torch.Tensor]:
+    """HybridTables buffers from _consts and natural_cores arrays, and the
+    hybrid synthesis kernel's compact constants of sample-rate row sr_row
+    (hybrid_kernel.synthesis_consts, which the JAX package has no
+    counterpart of; the tests hold them to natural_cores)."""
+    from .decode.hybrid_kernel import (is_ratio_table, pack_class_words,
+                                       synthesis_consts)
 
     def f32(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
 
     slot_idx = onehot_to_index(arrays["slot"])
     win_idx = onehot_to_index(arrays["win"])
+    syn = synthesis_consts(sr_row)
     return {
         "slot_idx": torch.from_numpy(slot_idx),
         "win_idx": torch.from_numpy(win_idx),
@@ -84,6 +89,10 @@ def hybrid_state(arrays: dict) -> dict[str, torch.Tensor]:
         "cores2": f32(arrays["cores2"]),
         "head": f32(arrays["head"]),
         "wins": f32(arrays["wins"]),
+        "syn_maps": f32(syn["maps"]),
+        "syn_wins": f32(syn["wins"]),
+        "syn_alias": f32(syn["alias"]),
+        "syn_perms": torch.from_numpy(syn["perms"].copy()),
     }
 
 
@@ -100,9 +109,12 @@ def decode_state(sr_row: int, core_l, core_s, core_m, wins, na,
                                   layout class (row_tables' one-hots)
       pretab, is_short (3, 576) f32, band_start (3, 576) int32
       chi, clo (3, 576, 1152) bf16  long/short/mixed cores, split once
-      wins (4, 1152) f32, synth_na, synth_nb (576, 576) f32"""
+      wins (4, 1152) f32, synth_na, synth_nb (576, 576) f32
+      synth_n (64, 32), synth_d (16, 32) f32  matrixing and dewindow
+                                  taps of the polyphase kernel (the
+                                  port's tables.build_tables)"""
     from .decode.class_core import split_bf16
-    from .decode.tables import CLASS_OF_KIND, row_tables
+    from .decode.tables import CLASS_OF_KIND, build_tables, row_tables
 
     def f32(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
@@ -123,6 +135,8 @@ def decode_state(sr_row: int, core_l, core_s, core_m, wins, na,
         "wins": f32(wins),
         "synth_na": f32(na),
         "synth_nb": f32(nb),
+        "synth_n": f32(build_tables().synth_n),
+        "synth_d": f32(build_tables().synth_d),
     }
 
 
@@ -152,7 +166,7 @@ def from_jax_arrays(arrays: dict[str, np.ndarray], sample_rate: int,
     state = {}
     for name, table in luts_from_packed([arrays[k] for k in PACK_NAMES]).items():
         state[f"luts.{name}"] = torch.from_numpy(table)
-    for name, t in hybrid_state(arrays).items():
+    for name, t in hybrid_state(arrays, SR_ROW[sample_rate]).items():
         state[f"hybrid.{name}"] = t
     decode = decode_state(SR_ROW[sample_rate], *(arrays[k] for k in DECODE_NAMES))
     for name, t in decode.items():

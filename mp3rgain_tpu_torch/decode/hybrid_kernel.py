@@ -9,8 +9,11 @@ module's, held bit-identical by the tests. The device side is:
     hybrid_kernel._kernel_body; on CPU tensors, runs
     fused_requant_stereo_reference (torch ops mirroring
     hybrid_kernel.py:171-246, same exp2(log2|x|·4/3) form).
-  - hybrid_gemm: hybrid_xla on torch.matmul — plain large products that
-    XLA computed outside any kernel.
+  - hybrid_synthesis: on CUDA tensors, launches the hand-written kernel
+    csrc/hybrid_synthesis.cu (alias butterflies and one 36 x 18 IMDCT map
+    per subband, from the compact constants of synthesis_consts); on CPU
+    tensors, runs hybrid_gemm, hybrid_xla on torch.matmul — plain large
+    products that XLA computed outside any kernel.
 
 What K2 computes, per granule-channel row r and natural-order sample i
 of its layout class c (long / short / mixed):
@@ -189,12 +192,54 @@ def pack_class_words(slot_idx, win_idx, pretab, band_start, short) -> np.ndarray
     return word.astype(np.int32)
 
 
+# The three 36 x 18 maps of synthesis_consts, in the kernel's order.
+MAP_LONG = 0  # unwindowed long IMDCT (long rows; the block type's window after)
+MAP_SHORT = 1  # short composite, window baked (short rows, mixed rows at sb >= 2)
+MAP_LONG0 = 2  # windowed long, block type 0 (mixed rows at sb < 2)
+
+
+@lru_cache(maxsize=None)
+def synthesis_consts(sr_row: int) -> dict[str, np.ndarray]:
+    """The hybrid synthesis kernel's constants for one sample-rate row, in
+    float64 (int32 permutations), from the builders the dense cores come
+    from (synthesis._fused_hybrid_cores, tables.build_tables):
+
+      maps (3, 36, 18)  [out line w, input line] of MAP_LONG, MAP_SHORT,
+                        MAP_LONG0
+      wins (4, 36)      long window of block type 0, 1, 3 (row 2 zeros)
+      alias (2, 8)      butterfly cs, ca
+      perms (3, 576)    layout gather of each class (long, short, mixed):
+                        layout line j reads natural line perms[c, j]
+
+    A row of class c: gather through perms[c], butterflies at every
+    subband boundary (long) or boundary 0 (mixed), then each subband's 18
+    lines through its map into 36 outputs, long rows windowed by
+    wins[bt]; outputs w < 18 go to head column 18·sb + w, the rest to
+    tail column 18·sb + w − 18. That is natural_cores' map, line for line."""
+    from .synthesis import _CA, _CS, _fused_hybrid_cores
+
+    t = build_tables()
+    i = np.arange(36)[:, None]
+    k = np.arange(18)[None, :]
+    core36 = np.cos(np.pi / 72.0 * (2 * i + 1 + 18) * (2 * k + 1))
+    wins = _fused_hybrid_cores()[3]
+    return {
+        "maps": np.stack([core36, t.imdct[2], t.imdct[0]]),
+        "wins": np.concatenate([wins[:, :18], wins[:, 576:594]], axis=1),
+        "alias": np.stack([_CS, _CA]),
+        "perms": np.stack(_perms(sr_row)).astype(np.int32),
+    }
+
+
 class HybridTables(nn.Module):
     """Per-sample-rate-row constants of the requantize → hybrid span:
     the K2 tables (slot_idx, win_idx: (3, 576) int32, -1 = none;
     pretab, band_start, short: (3, 576) f32, read by the plain version;
     class_words: (3, 576) int32, the same five packed for the kernel;
-    is_ratio) and the GEMM cores (cores2, head, wins) of natural_cores."""
+    is_ratio), the GEMM cores (cores2, head, wins) of natural_cores, which
+    the plain version reads, and the hybrid synthesis kernel's compact
+    constants (syn_maps, syn_wins, syn_alias f32, syn_perms int32) of
+    synthesis_consts."""
 
     def __init__(self, sr_row: int):
         super().__init__()
@@ -205,7 +250,7 @@ class HybridTables(nn.Module):
             arrays["band_start"], arrays["short"] = _consts(sr_row)
         arrays["cores2"], arrays["head"], _, arrays["wins"] = \
             natural_cores(sr_row)
-        for name, t in hybrid_state(arrays).items():
+        for name, t in hybrid_state(arrays, sr_row).items():
             self.register_buffer(name, t)
 
     @property
@@ -317,11 +362,50 @@ def fused_requant_stereo_reference(spec, scf, gmeta, tables: HybridTables):
     return torch.stack([left, right])
 
 
+def hybrid_synthesis(xr: torch.Tensor, gmeta: torch.Tensor,
+                     tables: HybridTables) -> torch.Tensor:
+    """Natural-order spectra → windowed hybrid outputs: xr (C, R, 576)
+    f32, gmeta (C, R, GM_N) int32 → (C, R, 1152) head|tail, full f32.
+
+    CUDA tensors launch the CUDA kernel (csrc/hybrid_synthesis.cu) on the
+    current stream without synchronising; CPU tensors run hybrid_gemm."""
+    if xr.dim() != 3 or xr.shape[0] not in (1, 2):
+        raise ValueError(f"xr: shape {tuple(xr.shape)}, expected (C, R, 576)")
+    c, r = xr.shape[:2]
+    dev = xr.device
+    check_tensor("xr", xr, torch.float32, (c, r, 576), dev)
+    check_tensor("gmeta", gmeta, torch.int32, (c, r, GM_N), dev)
+    if dev.type == "cpu":
+        tracing.count("plain.hybrid_synthesis")
+        return hybrid_gemm(xr, gmeta, tables)
+    if dev.type != "cuda":
+        raise ValueError(f"hybrid_synthesis: unsupported device {dev}")
+    for name, dtype, shape in (("syn_maps", torch.float32, (3, 36, 18)),
+                               ("syn_wins", torch.float32, (4, 36)),
+                               ("syn_alias", torch.float32, (2, 8)),
+                               ("syn_perms", torch.int32, (3, 576))):
+        check_tensor(name, getattr(tables, name), dtype, shape, dev)
+    out = torch.empty((c, r, 1152), dtype=torch.float32, device=dev)
+    if r == 0:
+        return out
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.mg_cuda_hybrid_synthesis(
+            xr.data_ptr(), gmeta.data_ptr(), tables.syn_maps.data_ptr(),
+            tables.syn_wins.data_ptr(), tables.syn_alias.data_ptr(),
+            tables.syn_perms.data_ptr(), out.data_ptr(), c * r, stream)
+    tracing.count("launches.hybrid_synthesis")
+    _build.check(rc, "hybrid_synthesis launch")
+    return out
+
+
 def hybrid_gemm(xr: torch.Tensor, gmeta: torch.Tensor,
                 tables: HybridTables) -> torch.Tensor:
     """Natural-order spectra → windowed hybrid outputs via the 2-core
     masked decomposition (hybrid_kernel.hybrid_xla): xr (C, R, 576) f32,
-    gmeta (C, R, GM_N) int32 → (C, R, 1152) head|tail, full f32."""
+    gmeta (C, R, GM_N) int32 → (C, R, 1152) head|tail, full f32. The
+    plain version of hybrid_synthesis."""
     p = tables.p
     cls = gmeta[..., GM_CLS : GM_CLS + 1]
     lane = torch.arange(576, device=xr.device)

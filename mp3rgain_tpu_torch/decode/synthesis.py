@@ -16,6 +16,12 @@ dimension: every tensor is (B, G, ...) with records g = t·nch + ch:
 The TPU's one-hot HIGH dots (reorder, scalefactor and subblock-gain
 expansion) become index selects, exact like the dots they replace. The
 per-sample-rate-row tables are the buffers of DecodeTables.
+
+The light route's last synthesis step is here too: overlap_polyphase
+(overlap-add and polyphase synthesis of the hybrid outputs) launches the
+hand-written kernel csrc/overlap_polyphase.cu on CUDA tensors and runs
+its plain version, overlap_polyphase_reference (two GEMMs over the
+folded maps of _tail_matrices_fused), on CPU tensors.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..device import resolve_device
+from .. import _build, tracing
+from ..device import check_tensor, resolve_device
 from . import frontend as fe
 from .class_core import class_core_gemm
 from .hybrid_kernel import _is_ratios
@@ -353,6 +360,57 @@ def _synthesis(out18, t: DecodeTables):
     pcm += torch.matmul(prev, t.synth_nb)
     del prev
     return pcm.permute(0, 2, 1, 3).reshape(bsz, nch, tt * 576)
+
+
+def overlap_polyphase(z: torch.Tensor, tables: DecodeTables) -> torch.Tensor:
+    """(C, B, T, 1152) hybrid outputs (head|tail of each granule-time, as
+    hybrid_kernel.hybrid_synthesis returns them) → (C, B, T·576) f32 PCM:
+    out18[t] = head[t] + tail[t − 1] (zeros before t = 0), then the
+    polyphase synthesis of each (channel, track) along its time axis.
+
+    CUDA tensors launch the CUDA kernel (csrc/overlap_polyphase.cu) on the
+    current stream without synchronising; CPU tensors run
+    overlap_polyphase_reference."""
+    if z.dim() != 4 or z.shape[0] not in (1, 2):
+        raise ValueError(f"z: shape {tuple(z.shape)}, expected (C, B, T, 1152)")
+    c, bsz, tt = z.shape[:3]
+    dev = z.device
+    check_tensor("z", z, torch.float32, (c, bsz, tt, 1152), dev)
+    if dev.type == "cpu":
+        return overlap_polyphase_reference(z, tables)
+    if dev.type != "cuda":
+        raise ValueError(f"overlap_polyphase: unsupported device {dev}")
+    check_tensor("synth_n", tables.synth_n, torch.float32, (64, 32), dev)
+    check_tensor("synth_d", tables.synth_d, torch.float32, (16, 32), dev)
+    pcm = torch.empty((c, bsz, tt * 576), dtype=torch.float32, device=dev)
+    if pcm.numel() == 0:
+        return pcm
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.mg_cuda_overlap_polyphase(
+            z.data_ptr(), tables.synth_n.data_ptr(), tables.synth_d.data_ptr(),
+            pcm.data_ptr(), c * bsz, tt, stream)
+    tracing.count("launches.overlap_polyphase")
+    _build.check(rc, "overlap_polyphase launch")
+    return pcm
+
+
+def overlap_polyphase_reference(z: torch.Tensor, tables: DecodeTables) -> torch.Tensor:
+    """Plain torch version of overlap_polyphase (same contract): the
+    overlap-add by shifted copies, then two GEMMs over the folded maps
+    synth_na, synth_nb."""
+    tracing.count("plain.overlap_polyphase")
+    c, bsz, tt, _ = z.shape
+    head = z[..., :576]
+    tl_ = z[..., 576:]
+    prev_tail = torch.cat([torch.zeros_like(tl_[:, :, :1]), tl_[:, :, :-1]], dim=2)
+    out18 = head + prev_tail  # (C, B, T, 576)
+    del prev_tail
+    prev18 = torch.cat([torch.zeros_like(out18[:, :, :1]), out18[:, :, :-1]], dim=2)
+    pcm = torch.matmul(out18, tables.synth_na)
+    pcm += torch.matmul(prev18, tables.synth_nb)
+    return pcm.reshape(c, bsz, tt * 576)
 
 
 def decode_batch(b: GranuleBatch, tables: DecodeTables) -> torch.Tensor:

@@ -9,8 +9,8 @@ The raw-bits ("light") route, the main path: host light walk → host lane
 sort and pack (prepare_batch_arrays_light) → host-to-device upload
 (Runner: pinned staging and a copy stream on CUDA) → the row map (dest_rows) → Huffman decode (K1, CUDA) straight
 into K2's channel-major rows → scalefactor and info gathers →
-requantize + stereo (K2, CUDA) → hybrid and polyphase GEMMs →
-equal-loudness IIR → RMS-window histogram → 95th-percentile index.
+requantize + stereo (K2, CUDA) → hybrid synthesis (K4, CUDA) →
+overlap-add and polyphase synthesis (K5, CUDA) → equal-loudness IIR → RMS-window histogram → 95th-percentile index.
 
 The host-decoded ("heavy") route: host full decode (frontend.unpack_data)
 → padded compact manifest (prepare_batch_arrays) → the same upload →
@@ -49,7 +49,8 @@ from ..decode import entropy_kernel as ek
 from ..decode import frontend as fe
 from ..decode import hybrid_kernel as hk
 from ..decode.format_tables import SR_ROW
-from ..decode.synthesis import DecodeTables, GranuleBatch, _derive_fields, decode_batch
+from ..decode.synthesis import (DecodeTables, GranuleBatch, _derive_fields, decode_batch,
+                                overlap_polyphase)
 from ..device import mark_stage as _stage
 from ..device import require_cuda, resolve_device
 from ..native import _lib
@@ -256,9 +257,10 @@ def prepare_batch_arrays(unpacked: list, n_channels: int,
 
 class LightTail(nn.Module):
     """The constant tables of both routes for one (sample rate, channel
-    count), as buffers: the Huffman tables (luts), the K2 gather tables
-    and light hybrid GEMM cores (hybrid), the decode back-end's tables,
-    K3 cores and polyphase maps (decode) and the equal-loudness solve
+    count), as buffers: the Huffman tables (luts), the K2 gather tables,
+    the hybrid cores and K4's compact maps (hybrid), the decode back-end's
+    tables, K3 cores, polyphase maps and K5's taps (decode) and the
+    equal-loudness solve
     (iir). constants.from_jax_arrays builds the same state from the JAX
     package's builders."""
 
@@ -483,7 +485,8 @@ def light_tail(tail: LightTail, spec_rows, big_end, c1end, counts, scf,
     (B, 12000) int32, loud_idx (B,) int32, peak (B,) f32) — the JAX
     package's _light_tail after its unsort and row gathers. fused=True
     (the main path): channel-major inputs, requantize + stereo (K2),
-    hybrid GEMMs, overlap-add, polyphase GEMMs, IIR, histogram.
+    hybrid synthesis (alias butterflies and IMDCT), overlap-add and
+    polyphase synthesis, IIR, histogram.
     fused=False: the host-decoded route's analysis_tail on the same
     decode, which equals that route exactly. on_stage, if given, is
     called with a stage's name as each stage of the fused path has been
@@ -503,23 +506,17 @@ def light_tail(tail: LightTail, spec_rows, big_end, c1end, counts, scf,
     xr = hk.fused_requant_stereo(spec_cm, scf_cm, gmeta, tail.hybrid)
     del spec_cm, scf_cm
     _stage(on_stage, "K2")
-    z = hk.hybrid_gemm(xr, gmeta, tail.hybrid).reshape(nch, bsz, t, 1152)
+    # The two synthesis stages keep their names, which the benchmark's
+    # synthesis metric reads, though no GEMM is left on the card.
+    z = hk.hybrid_synthesis(xr, gmeta, tail.hybrid).reshape(nch, bsz, t, 1152)
     del xr
     _stage(on_stage, "hybrid GEMMs")
 
-    head = z[..., :576]
-    tl_ = z[..., 576:]
-    prev_tail = torch.cat([torch.zeros_like(tl_[:, :, :1]), tl_[:, :, :-1]], dim=2)
-    out18 = head + prev_tail  # (C, B, T, 576)
-    del z, prev_tail
-    prev18 = torch.cat([torch.zeros_like(out18[:, :, :1]), out18[:, :, :-1]], dim=2)
-    pcm = torch.matmul(out18, tail.decode.synth_na)
-    pcm += torch.matmul(prev18, tail.decode.synth_nb)
-    del out18, prev18
+    pcm = overlap_polyphase(z, tail.decode)  # (C, B, T·576)
+    del z
     _stage(on_stage, "overlap-add + polyphase")
 
     n = t * 576
-    pcm = pcm.reshape(nch, bsz, n)
     sample_idx = torch.arange(n, device=dev)
     peak_mask = sample_idx[None, None, :] < valid_samples[None, :, None]
     peak = (pcm.abs() * peak_mask).amax(dim=(0, 2))  # (B,)

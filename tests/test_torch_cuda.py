@@ -187,6 +187,109 @@ def test_k2_kernel_matches_plain_on_random_rows(nch, rows, sr_row, dev):
     assert empty.shape == (nch, 0, 576)
 
 
+def _close(got, want):
+    """The kernel tests' tolerance (K2's): rtol 1e-5, atol 1e-6 x the
+    rows' scale."""
+    scale = want.abs().max().item()
+    assert scale > 0
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("nch,rows,sr_row", [(1, 1, 4), (1, 1001, 8), (2, 1, 0),
+                                             (2, 37, 3), (2, 1001, 5), (2, 1001, 1),
+                                             (1, 333, 6)])
+def test_k4_hybrid_synthesis_matches_plain_on_random_rows(nch, rows, sr_row, dev):
+    """Random spectra in rows of every class and block type (long bt
+    0/1/3, short, mixed; the same class with each block type), rows of no
+    class and all-zero padding rows; MPEG-1, LSF and MPEG-2.5 tables."""
+    rng = np.random.default_rng(rows * 10 + sr_row)
+    xr = rng.standard_normal((nch, rows, 576)) * rng.uniform(0.01, 100.0, (nch, rows, 1))
+    gm = np.zeros((nch, rows, hk.GM_N), np.int32)
+    gm[..., hk.GM_BT] = rng.integers(0, 4, (nch, rows))
+    gm[..., hk.GM_CLS] = np.where(gm[..., hk.GM_BT] == 2, rng.integers(1, 3, (nch, rows)),
+                                  rng.integers(0, 3, (nch, rows)))
+    if rows > 10:
+        gm[:, 3, hk.GM_CLS] = 3  # no class: zeros, as the masked products give
+        xr[:, 5:9] = 0.0
+        gm[:, 5:9] = 0  # padding rows
+    xr_t = torch.from_numpy(xr.astype(np.float32)).to(dev)
+    gm_t = torch.from_numpy(gm).to(dev)
+    tables = hk.HybridTables(sr_row).to(dev)
+    with tracing.recording():
+        got = hk.hybrid_synthesis(xr_t, gm_t, tables)
+        torch.cuda.synchronize()
+        assert _counts("hybrid_synthesis") == (1, 0)
+    _close(got, hk.hybrid_gemm(xr_t, gm_t, tables))
+    if rows > 10:
+        assert not got[:, 3].any() and not got[:, 5:9].any()
+    empty = hk.hybrid_synthesis(xr_t[:, :0], gm_t[:, :0], tables)
+    assert empty.shape == (nch, 0, 1152)
+
+
+# T: runs of 64 granule-times walked 4 at a time, so 1, 3 and 5 end inside
+# a step, 64 fills a run, 65 and 150 start runs mid-track (halo).
+@pytest.mark.parametrize("nch,bsz,tt", [(1, 1, 1), (2, 3, 3), (1, 2, 5), (2, 1, 64),
+                                        (2, 2, 65), (1, 3, 150), (2, 5, 129)])
+def test_k5_overlap_polyphase_matches_plain(nch, bsz, tt, dev):
+    rng = np.random.default_rng(nch * 1000 + bsz * 100 + tt)
+    z = rng.standard_normal((nch, bsz, tt, 1152)).astype(np.float32)
+    z *= rng.uniform(0.01, 10.0, (nch, bsz, 1, 1)).astype(np.float32)
+    z_t = torch.from_numpy(z).to(dev)
+    tables = syn.DecodeTables(0).to(dev)
+    with tracing.recording():
+        got = syn.overlap_polyphase(z_t, tables)
+        torch.cuda.synchronize()
+        assert _counts("overlap_polyphase") == (1, 0)
+    assert got.shape == (nch, bsz, tt * 576)
+    _close(got, syn.overlap_polyphase_reference(z_t, tables))
+    assert syn.overlap_polyphase(z_t[:, :, :0], tables).shape == (nch, bsz, 0)
+
+
+@pytest.mark.parametrize("name", ["mono_22k", "transient", "craft_intensity",
+                                  "craft_lsf_intensity", "craft_mixed_block"])
+def test_k4_k5_match_plain_on_decoded_streams(name, dev):
+    """K2's output of real streams (long, short and mixed blocks, MPEG-1 and
+    LSF, mono and stereo) through K4 and K5 against the plain versions."""
+    u = fe.unpack_data_light_packed(STREAMS[name]())
+    prep, rest, g_max = pr.prepare_batch_arrays_light([u, u], u.n_channels)
+    args = _on(dev, (prep.scalars, prep.buf, prep.meta, prep.inv) + tuple(rest))
+    tail = pr.LightTail(u.sample_rate, u.n_channels).to(dev)
+    dest, n_rows = pr.dest_rows(args[3], args[4], g_max=g_max,
+                                n_channels=u.n_channels, channel_major=True)
+    rows = ek.decode_rows(*args[:3], tail.luts, dest, n_rows)
+    cm = pr.channel_major_inputs(*rows, *args[4:11], nb=prep.nb,
+                                 g_max=g_max, n_channels=u.n_channels)
+    xr = hk.fused_requant_stereo(*cm, tail.hybrid)
+    got = hk.hybrid_synthesis(xr, cm[2], tail.hybrid)
+    want = hk.hybrid_gemm(xr, cm[2], tail.hybrid)
+    _close(got, want)
+    z = want.reshape(u.n_channels, -1, g_max // u.n_channels, 1152)
+    _close(syn.overlap_polyphase(z, tail.decode),
+           syn.overlap_polyphase_reference(z, tail.decode))
+
+
+def test_light_scan_launches_k4_and_k5_once_per_batch(dev, tmp_path):
+    """analyze_library over 3 light batches launches each synthesis kernel
+    once a batch and never its plain version."""
+    paths = []
+    for i in range(6):
+        paths.append(str(tmp_path / f"t{i}.mp3"))
+        with open(paths[-1], "wb") as f:
+            f.write(_clip(smoke.MONO_TRACK))
+    runner = pr.Runner(dev)
+    with tracing.recording():
+        res = pr.analyze_library(paths, runner=runner, max_batch=2)
+        assert len(runner.timings) == 3
+        assert _counts("hybrid_synthesis") == _counts("overlap_polyphase") == (3, 0)
+    u = fe.unpack_data_light_packed(_clip(smoke.MONO_TRACK))
+    c_hist, c_louds, c_peaks = pr.Runner("cpu").analyze_unpacked_light(
+        [u], u.sample_rate, u.n_channels)
+    for t in res.tracks:
+        assert t.ok and int(t.histogram.sum()) == int(c_hist.sum())
+        assert abs(t.result.loudness_db - c_louds[0]) <= 0.02 + 1e-9
+        np.testing.assert_allclose(t.result.peak, c_peaks[0], rtol=2e-4, atol=1e-6)
+
+
 def test_light_path_on_card_matches_cpu(dev):
     u = fe.unpack_data_light_packed(_clip(smoke.TRANSIENT_TRACK))
     with tracing.recording():
