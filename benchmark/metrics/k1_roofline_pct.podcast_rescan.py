@@ -1,0 +1,6 @@
+"""k1_roofline_pct.podcast_rescan: as k1_roofline_pct.rescan, over the
+podcast archive's rescan window."""
+
+from harness.registry import reader
+
+read = reader("k1_roofline_pct.rescan")

@@ -63,9 +63,9 @@ then the real_library phase, the input a real library holds against the
 same float64 reference: every MPEG class and every AAC rate tiled past the
 IIR's dense level-2 limit (so the doubling scan runs) on each of its
 routes, the 88.2 kHz degenerate rate on both sides, 4 min / 20 min / 2 h
-tracks through analyze_track_internal and scan_files (the 2 h MP3 a batch
-of one over the rows cap; the long ones held segment by segment), and a
-scan of 48 distinct real-length files with two 2 h batches among them,
+tracks through analyze_track_internal and scan_files (the 2 h MP3 over the
+rows cap, in segments; the long ones held segment by segment), and a scan
+of 48 distinct real-length files with two 2 h tracks among them,
 every track equal to its single-track run (testing/tile.py makes the long
 streams from the committed clips on this host).
 Every check raises on failure; there is no CPU branch.
@@ -1806,7 +1806,7 @@ def real_library_phase(dev, card):
     and scan_files (equal); 4 min against the whole reference; 20 min and
     2 h by three 10 s segments of EqualLoudness on the card over the
     card's decode, each against the float64 filter started 1 s before it;
-    the 2 h MP3 is a batch of one over the rows cap;
+    the 2 h MP3 is over the rows cap and runs as segments;
     (c) a library of 48 distinct files of 2-12 min in five (rate,
     channels) buckets, MP3 and AAC, with the 2 h MP3 and a symlink to it:
     scan_files with a manifest, every track equal to its single-track run
@@ -2005,7 +2005,31 @@ def real_library_phase(dev, card):
             one = analysis.analyze_track_internal(path, device=dev, runner=runner)
             one_s = time.perf_counter() - t0
             mem_gb = torch.cuda.max_memory_allocated() / 1e9
-            shape = iir_call(sr)
+            rows_per = 576 if kind == "mp3" else 1024
+            plan = None
+            if kind == "mp3":
+                rows = layout.frames * copies * (2 if layout.samples_per_frame == 1152 else 1)
+                rows *= layout.channels
+                plan = pr.segment_plan(rows, sr, layout.channels, pr.ROWS_CAP)
+            if plan is None:
+                shape = iir_call(sr)
+                padded_rows = shape[0] * shape[1] // rows_per
+            else:
+                # Over the rows cap: one IIR call a segment, in order, each
+                # over its own granule-times (its halo's PCM dropped) and
+                # within the cap with its halo's rows.
+                calls = [c[1] for c in seen if c[0] == sr]
+                check(len(calls) == len(plan), f"{what}: one IIR call for each of the "
+                      f"{len(plan)} segments, saw {calls}")
+                seg_rows = []
+                for (a, b), (c, n) in zip(plan, calls):
+                    seg_rows.append(c * (n // 576 + min(pr.HALO, a)))
+                    check(c == layout.channels and (b - a) * 576 <= n
+                          and seg_rows[-1] <= pr.ROWS_CAP,
+                          f"{what}: segment [{a}, {b}) ran as ({c}, {n}): "
+                          f"{seg_rows[-1]} padded rows, cap {pr.ROWS_CAP}")
+                shape = max(calls, key=lambda c: c[1])  # the longest segment's
+                padded_rows = sum(seg_rows)
             res = scan.scan_files([path], runner=runner)
             got = res.results[path]
             check(not isinstance(got, Exception), f"{what}: scan_files ({got!r})")
@@ -2015,14 +2039,12 @@ def real_library_phase(dev, card):
                   f"{what}: analyze_track_internal equals scan_files")
             singles[path] = (one.histogram, one.result.loudness_db, one.result.gain_db,
                              one.result.peak)
-            rows_per = 576 if kind == "mp3" else 1024
-            padded_rows = shape[0] * shape[1] // rows_per
             n_padded = shape[-1]
             if kind == "mp3":
-                rows = layout.frames * copies * (2 if layout.samples_per_frame == 1152 else 1)
-                rows *= layout.channels
-                size = (f"{rows} granule-channels ({rows / 640_000:.2f}x the 640,000-row "
-                        f"cap), {padded_rows} padded rows")
+                size = (f"{rows} granule-channels ({rows / pr.ROWS_CAP:.2f}x the "
+                        f"{pr.ROWS_CAP:,}-row cap), {padded_rows} padded rows"
+                        + (f" in {len(plan)} segments of {', '.join(map(str, seg_rows))} "
+                           f"(padded samples: the longest's)" if plan else ""))
             else:
                 rows = layout.frames * copies * layout.channels
                 size = (f"{rows} frame-channel lanes ({rows / pr.AAC_ROWS_CAP:.2f}x the "
@@ -2051,7 +2073,7 @@ def real_library_phase(dev, card):
                   and bool(np.isfinite(pcm).all()), f"{what}: card decode")
             x = torch.from_numpy(pcm).to(dev) * 32768.0
             eq = iir.EqualLoudness(sr).to(dev)
-            y = eq(x)
+            y = eq(x)[0]
             del x, eq
             t = pcm.shape[-1]
             seg, warm = int(REAL_SEGMENT_S * sr), int(REAL_WARMUP_S * sr)
@@ -2166,6 +2188,9 @@ def real_library_phase(dev, card):
             per_bucket[key] = per_bucket.get(key, 0) + 1
             rows = shape[0] * shape[1] // (576 if key[0] == "MP3" else 1024)
             biggest = max(biggest, (rows, key))
+            # A segment's IIR leaves out its halo's 2 granule-times.
+            check(key[0] != "MP3" or rows <= pr.ROWS_CAP,
+                  f"library: an MP3 batch of {rows} rows over the cap ({shape})")
         buckets = "; ".join(f"{c} {s / 1000:g} kHz {n} ch: {k}"
                             for (c, s, n), k in sorted(per_bucket.items()))
         check(len(per_bucket) >= 4 and {c for c, _, _ in per_bucket} == {"MP3", "AAC"},

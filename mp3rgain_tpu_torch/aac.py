@@ -279,7 +279,7 @@ def analysis_tail(tail: AacTail, spec, window_seq, window_shape,
     mark_stage(on_stage, "clip + peak")
     x = pcm.reshape(bsz * c, n) * SAMPLE_SCALE_16BIT
     del pcm
-    filtered = tail.iir(x).reshape(bsz, c, n)
+    filtered = tail.iir(x)[0].reshape(bsz, c, n)
     mark_stage(on_stage, "IIR")
     hist = hi.histogram(filtered, valid_samples,
                         hi.window_size(tail.sample_rate))

@@ -81,13 +81,14 @@ def _detect_file_type(path) -> str:
 
 
 def _analyze_mp3(path, runner: Runner):
-    """(hist (12000,) on the host, loudness dB, peak, sample rate)."""
+    """(hist (12000,) on the host, loudness dB, peak, sample rate): one
+    batch, or the track's segments where it is over the rows cap
+    (Runner.analyze_track_light)."""
     with tracing.span("walk"), open(path, "rb") as f:
         u = frontend.unpack_data_light_packed(f.read())
     if u.n == 0:
         raise AnalysisError("No valid MP3 frames found")
-    hist, louds, peaks = runner.analyze_unpacked_light(
-        [u], u.sample_rate, u.n_channels)
+    hist, louds, peaks = runner.analyze_track_light(u)
     return hist[0], float(louds[0]), float(peaks[0]), u.sample_rate
 
 

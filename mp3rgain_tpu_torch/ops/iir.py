@@ -219,10 +219,16 @@ def _affine_prefix(v, t2m, t3m, p, ml2, l2: int = L2):
     return s[:, :, :n]
 
 
-def _group_apply(x, tc, g, t2m, t3m, p, ml2, block: int):
+def _group_apply(x, tc, g, t2m, t3m, p, ml2, block: int, x_hist=None, y_hist=None):
     """Apply a full direct-form IIR (K-tap FIR + AR(P)) along the last
     axis of (B, T), blockwise and exactly: one (L, L+K-1) matmul per
-    block plus the two-level affine carry prefix."""
+    block plus the two-level affine carry prefix.
+
+    From zero state, or, given x_hist (B, K-1) and y_hist (B, P) (the K-1
+    inputs and the P outputs before x[0], oldest first), from that state:
+    the inputs extend the first block, and the outputs enter the first
+    block's carry through M (p[0]) and its homogeneous response through
+    G, as a block's carry enters the next."""
     L = block
     K = tc.shape[1] - L + 1
     P = g.shape[1]
@@ -230,14 +236,24 @@ def _group_apply(x, tc, g, t2m, t3m, p, ml2, block: int):
     nblk = -(-t // L)
     xb = F.pad(x, (0, nblk * L - t)).reshape(b, nblk, L)
     # Extended input block: previous block's last K-1 samples + this block.
-    prev = F.pad(xb[:, :-1, L - (K - 1):], (0, 0, 1, 0))
+    if x_hist is None:
+        prev = F.pad(xb[:, :-1, L - (K - 1):], (0, 0, 1, 0))
+    else:
+        prev = torch.cat([x_hist[:, None, :], xb[:, :-1, L - (K - 1):]], dim=1)
     xin = torch.cat([prev, xb], dim=-1)  # (B, NB, L+K-1)
     y_zs = torch.matmul(xin, tc.T)  # (B, NB, L)
     del xin, prev
     # Block carry state s = [y_{L-1}, ..., y_{L-P}], tap-major (B, P, NB).
     v = y_zs[:, :, L - 1 - torch.arange(P, device=x.device)].transpose(1, 2)
-    s = _affine_prefix(v, t2m, t3m, p, ml2)  # (B, P, NB)
-    s_prev = F.pad(s, (1, 0))[:, :, :-1]
+    if y_hist is None:
+        s = _affine_prefix(v, t2m, t3m, p, ml2)  # (B, P, NB)
+        s_prev = F.pad(s, (1, 0))[:, :, :-1]
+    else:
+        s_init = y_hist.flip(-1)  # the block-state order, newest first
+        v = v.clone()
+        v[:, :, 0] += torch.matmul(s_init, p[0].T)
+        s = _affine_prefix(v, t2m, t3m, p, ml2)
+        s_prev = torch.cat([s_init[:, :, None], s[:, :, :-1]], dim=2)
     y_zs += torch.matmul(s_prev.transpose(1, 2), g.T)
     return y_zs.reshape(b, nblk * L)[:, :t]
 
@@ -273,34 +289,61 @@ class EqualLoudness(nn.Module):
             self._t3m[key] = t3m
         return self._t3m[key]
 
-    def _stage(self, y, i: int):
+    def _stage(self, y, i: int, x_hist=None, y_hist=None):
         c = {f: getattr(self, f"s{i}_{f}").to(y.dtype) for f in STAGE_FIELDS}
         t3m = self._dense_t3m(i, y.shape[-1], y)
         return _group_apply(y, c["tc"], c["g"], c["t2m"], t3m, c["p"],
-                            c["ml2"], self.block)
+                            c["ml2"], self.block, x_hist, y_hist)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Filter (B, T) audio scaled to the 16-bit range (×32768)."""
+    @property
+    def state_width(self) -> int:
+        """Numbers of one row's filter state: each stage's K-1 last inputs
+        and P last outputs."""
+        return sum(len(b) - 1 + len(a) for b, a in self.plan)
+
+    def forward(self, x: torch.Tensor, state: torch.Tensor | None = None,
+                end: int | None = None):
+        """Filter (B, T) audio scaled to the 16-bit range (×32768), from
+        zero state, or from `state` (B, state_width), where x continues a
+        stream whose filter left that state: exactly, with nothing warmed
+        up. Returns (y, ends): with `end` given, ends are small tensors
+        whose torch.cat along dim 1 is the state after sample end - 1,
+        else an empty list. The state holds, stage by stage, the stage's
+        last K-1 inputs and its last P outputs before the constant is
+        added, oldest first."""
+        ends, off = [], 0
         if not self.plan:
             # Degenerate rate: the reference's NaN windows land in bin 2000
             # (loudness 0.0); a constant all-ones output reproduces that.
-            return torch.ones_like(x)
-        y = x
+            return torch.ones_like(x), ends
+
+        def stage(inp, i):
+            nonlocal off
+            k1, p = len(self.plan[i][0]) - 1, len(self.plan[i][1])
+            hist = (None, None) if state is None else (
+                state[:, off:off + k1], state[:, off + k1:off + k1 + p])
+            off += k1 + p
+            y = self._stage(inp, i, *hist)
+            if end is not None:
+                ends.extend([inp[:, end - k1:end].clone(), y[:, end - p:end].clone()])
+            return y
+
         if self.grouped:
-            y = self._stage(y, 0) + DENORMAL_PREVENTION
-            return self._stage(y, 1) + DENORMAL_PREVENTION
+            y = stage(x, 0) + DENORMAL_PREVENTION
+            return stage(y, 1) + DENORMAL_PREVENTION, ends
+        y = x
         for i in range(len(self.plan)):
             if i == len(self.plan) - 1:
                 y = y + DENORMAL_PREVENTION
-            y = self._stage(y, i)
-        return y + DENORMAL_PREVENTION
+            y = stage(y, i)
+        return y + DENORMAL_PREVENTION, ends
 
 
 def equal_loudness(x: torch.Tensor, sample_rate: int,
                    block: int = DEFAULT_BLOCK) -> torch.Tensor:
     """Equal-loudness filter along the last axis of (B, T), on x's device
     and in x's dtype."""
-    return EqualLoudness(sample_rate, block).to(x.device)(x)
+    return EqualLoudness(sample_rate, block).to(x.device)(x)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ constant tables live as buffers of one LightTail module.
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 import threading
 import time
@@ -368,7 +369,7 @@ def analysis_tail(tail: LightTail, spectrum, scf, info, valid_samples):
     peak = (pcm.abs() * peak_mask).amax(dim=(1, 2))  # (B,)
     x = pcm.reshape(bsz * c, n) * SAMPLE_SCALE_16BIT
     del pcm
-    filtered = tail.iir(x).reshape(bsz, c, n)
+    filtered = tail.iir(x)[0].reshape(bsz, c, n)
     hist = hi.histogram(filtered, valid_samples,
                         hi.window_size(tail.sample_rate))
     return hist, hi.loudness_index(hist), peak
@@ -480,7 +481,7 @@ def _light_tail_unfused(tail: LightTail, spec_rows, big_end, c1end, counts,
 
 def light_tail(tail: LightTail, spec_rows, big_end, c1end, counts, scf,
                srow, sdata, hrow, hdata, info, valid_samples, *, nb: int,
-               g_max: int, fused: bool = True, on_stage=None):
+               g_max: int, fused: bool = True, on_stage=None, segment=None):
     """K1's rows (dest_rows' layout for `fused`) → (hist
     (B, 12000) int32, loud_idx (B,) int32, peak (B,) f32) — the JAX
     package's _light_tail after its unsort and row gathers. fused=True
@@ -490,8 +491,17 @@ def light_tail(tail: LightTail, spec_rows, big_end, c1end, counts, scf,
     fused=False: the host-decoded route's analysis_tail on the same
     decode, which equals that route exactly. on_stage, if given, is
     called with a stage's name as each stage of the fused path has been
-    enqueued (for per-stage device timing)."""
+    enqueued (for per-stage device timing).
+
+    segment (a Segment, the batch's one track): its first segment.halo
+    granule-times feed only the decode and their PCM is dropped; the IIR
+    starts from the filter state the segment before it left (raises
+    CarryMissing where that one has not run), and, unless the segment is
+    its track's last, leaves its own end state for the next in the
+    "carry" stage."""
     if not fused:
+        if segment is not None:
+            raise ValueError("a segment runs on the fused path")
         return _light_tail_unfused(
             tail, spec_rows, big_end, c1end, counts, scf, srow, sdata, hrow,
             hdata, info, valid_samples, nb=nb, g_max=g_max)
@@ -517,15 +527,26 @@ def light_tail(tail: LightTail, spec_rows, big_end, c1end, counts, scf,
     _stage(on_stage, "overlap-add + polyphase")
 
     n = t * 576
+    if segment is not None:
+        pcm = pcm[:, :, segment.halo * 576:]
+        n -= segment.halo * 576
     sample_idx = torch.arange(n, device=dev)
     peak_mask = sample_idx[None, None, :] < valid_samples[None, :, None]
     peak = (pcm.abs() * peak_mask).amax(dim=(0, 2))  # (B,)
     _stage(on_stage, "peak")
 
-    x = pcm.reshape(nch * bsz, n) * SAMPLE_SCALE_16BIT
+    x = (pcm * SAMPLE_SCALE_16BIT).reshape(nch * bsz, n)
     del pcm
-    filtered = tail.iir(x).reshape(nch, bsz, n).transpose(0, 1)  # (B, C, N)
+    state, end = None, None
+    if segment is not None:
+        state = segment.carry.state_before(segment.index)
+        end = None if segment.last else segment.samples
+    filtered, ends = tail.iir(x, state, end)
+    filtered = filtered.reshape(nch, bsz, n).transpose(0, 1)  # (B, C, N)
     _stage(on_stage, "IIR")
+    if end is not None:
+        segment.carry.states[segment.index] = torch.cat(ends, dim=1) if ends else None
+        _stage(on_stage, "carry")
     hist = hi.histogram(filtered, valid_samples,
                         hi.window_size(tail.sample_rate))
     loud_idx = hi.loudness_index(hist)
@@ -536,10 +557,10 @@ def light_tail(tail: LightTail, spec_rows, big_end, c1end, counts, scf,
 def analysis_core_light(tail: LightTail, scalars, buf, metab, inv, counts,
                         scf, srow, sdata, hrow, hdata, info, valid_samples,
                         *, nb: int, g_max: int, fused: bool = True,
-                        on_stage=None):
+                        on_stage=None, segment=None):
     """Raw-bits batched pipeline: the row map, Huffman decode (K1) into
     the rows light_tail reads, then light_tail (on_stage: light_tail's;
-    also called after "row map" and "K1")."""
+    also called after "row map" and "K1"; segment: light_tail's)."""
     dest, n_rows = dest_rows(inv, counts, g_max=g_max,
                              n_channels=tail.n_channels, channel_major=fused)
     _stage(on_stage, "row map")
@@ -549,7 +570,7 @@ def analysis_core_light(tail: LightTail, scalars, buf, metab, inv, counts,
     return light_tail(
         tail, spec_rows, big_end, c1end, counts, scf, srow, sdata, hrow,
         hdata, info, valid_samples, nb=nb, g_max=g_max, fused=fused,
-        on_stage=on_stage,
+        on_stage=on_stage, segment=segment,
     )
 
 
@@ -584,6 +605,136 @@ def _count_rows(unpacked: list, padded: int, per: int = 1) -> None:
         tracing.count("rows.padded", padded)
 
 
+# ---------------------------------------------------------------------------
+# Tracks over the rows cap: segments that carry decoder and filter state.
+# ---------------------------------------------------------------------------
+
+# Padded granule-channel rows of an MP3 batch (bpad x padded rows). The 64
+# x 60 s batch is 589,824 rows; a batch at the cap peaks near 8 GB on the
+# H100 with K4 and K5 (PERF.md).
+ROWS_CAP = 640_000
+# Granule-times a segment reads before its first: the IMDCT overlap of its
+# first granule comes from the one before, and the polyphase FIFO from
+# that one's overlap-add, which needs the one before it.
+HALO = 2
+
+
+def cut_granules(sample_rate: int) -> int:
+    """Granules from one cut to the next that keep the 50 ms windows'
+    phase: lcm(576, window) samples (245 at 44.1 kHz, 551 at 22.05 kHz,
+    25 at 48 kHz)."""
+    return math.lcm(576, hi.window_size(sample_rate)) // 576
+
+
+def segment_plan(n_rows: int, sample_rate: int, n_channels: int,
+                 rows_cap: int) -> list[tuple[int, int]] | None:
+    """The granule-time ranges [g0, g1) of a track's segments, in order,
+    where its padded rows exceed the budget, rows_cap rows and rows_cap / 2
+    granule-times: each a whole number of cut units whose rows, with its
+    halo's, pad to at most the budget, the last taking what is left. The
+    granule-times bound the length of a one-row batch: its peak mask and
+    its windows' masks hold int64 and float tensors along the row, so a
+    mono track is cut where a stereo track of its length is. None where
+    the track fits the budget, or where not even one cut unit fits (the
+    track is then one batch of its own, as before)."""
+    unit = 2 * n_channels
+    budget = rows_cap * n_channels // 2
+    if _quantize_up(n_rows, unit, base=512, ratio=1.3) <= budget:
+        return None
+    per = cut_granules(sample_rate)
+    k = (budget // n_channels - HALO) // per
+    while k > 0 and _quantize_up((k * per + HALO) * n_channels, unit,
+                                 base=512, ratio=1.3) > budget:
+        k -= 1
+    if k <= 0:
+        return None
+    size, total = k * per, n_rows // n_channels
+    return [(g0, min(g0 + size, total)) for g0 in range(0, total, size)]
+
+
+class CarryMissing(RuntimeError):
+    """A segment launched before the one ahead of it had left its state
+    (that one failed to launch): it is launched again once it has."""
+
+
+class TrackCarry:
+    """What the segments of one track hand on: each segment's filter state
+    at its end (a (C, state_width) tensor on the device), by segment index.
+    The segments run in order on one Runner, so a state is read on the
+    stream that wrote it."""
+
+    def __init__(self):
+        self.states: dict[int, torch.Tensor | None] = {}
+
+    def state_before(self, index: int):
+        if index == 0:
+            return None
+        try:
+            return self.states[index - 1]
+        except KeyError:
+            raise CarryMissing(f"segment {index} has no state from segment {index - 1}") from None
+
+
+@dataclass(eq=False)
+class Segment:
+    """Granule-times [g0 - halo, g1) of a packed light-unpacked track, as
+    a track of its own (the rows are views of the track's), for a batch
+    of one: its index in the track, its halo, the samples it answers for
+    and whether it is the last."""
+
+    ip: np.ndarray
+    scf_main: np.ndarray
+    srows: np.ndarray
+    sdata: np.ndarray
+    hrows: np.ndarray
+    hmask: np.ndarray
+    md: np.ndarray
+    meta: np.ndarray
+    sample_rate: int
+    n_channels: int
+    carry: TrackCarry
+    index: int
+    halo: int
+    samples: int
+    last: bool
+
+    @property
+    def n(self) -> int:
+        return self.ip.shape[0]
+
+
+def split_track(u, plan: list[tuple[int, int]]) -> list[Segment]:
+    """The segments of a packed light-unpacked track (fe.UnpackedMp3LightPacked)
+    for segment_plan's ranges, each starting HALO granule-times early
+    (fewer at the track's start); they share one TrackCarry."""
+    carry = TrackCarry()
+    nch = u.n_channels
+    out = []
+    for k, (g0, g1) in enumerate(plan):
+        with tracing.span("segment"):
+            halo = min(HALO, g0)
+            a, b = (g0 - halo) * nch, g1 * nch
+            s = (u.srows >= a) & (u.srows < b)
+            h = (u.hrows >= a) & (u.hrows < b)
+            out.append(Segment(
+                u.ip[a:b], u.scf_main[a:b], u.srows[s] - a, u.sdata[s], u.hrows[h] - a,
+                u.hmask[h], u.md[a:b], u.meta[a:b], u.sample_rate, nch, carry, k, halo,
+                (g1 - g0) * 576, k == len(plan) - 1))
+        tracing.count("segments")
+    tracing.count("tracks.segmented")
+    return out
+
+
+def combine_segments(hists, peaks):
+    """One track's (hist (12000,) int32, loudness dB, peak) from its
+    segments' histograms and peaks: the histograms add, the peak is the
+    largest (NaN wins, as in one batch), the loudness is the device
+    readout's (hi.loudness_index) of the sum."""
+    hist = np.sum(np.asarray(hists, np.int64), axis=0)
+    idx = int(hi.loudness_index(torch.from_numpy(hist)[None])[0])
+    return hist.astype(np.int32), hi.index_to_loudness(idx), np.max(np.asarray(peaks, np.float32))
+
+
 @dataclass
 class Prepared:
     """A batch's host half (Runner.prepare_light / prepare_heavy /
@@ -600,6 +751,16 @@ class Prepared:
     pooled: tuple
     shapes: dict
     prep_s: float
+
+
+def _batch_name(p: Prepared) -> str:
+    """A batch as the device.peak_bytes gauge names it."""
+    seg = p.shapes.get("segment")
+    return (f"{p.route} {p.sample_rate} Hz {p.n_channels} ch, batch of {p.bsz}"
+            + (f", {len(p.arrays[4]) * p.shapes['g_max']} padded rows"
+               if p.route == "light" else "")
+            + (f", segment {seg.index} ({seg.n // seg.n_channels} granule-times)"
+               if seg is not None else ""))
 
 
 @dataclass
@@ -783,14 +944,21 @@ class Runner:
     def prepare_light(self, unpacked: list, sample_rate: int,
                       n_channels: int) -> Prepared:
         """Host prep of a batch of same-format light-unpacked tracks."""
+        segments = [u for u in unpacked if isinstance(u, Segment)]
+        if segments and len(unpacked) != 1:
+            raise ValueError("a segment is a batch of its own")
         with tracing.span("prep"):
             t0 = time.perf_counter()
             prep, rest, g_max = prepare_batch_arrays_light(unpacked, n_channels, 1)
             _count_rows(unpacked, len(rest[0]) * g_max)
+            shapes = {"nb": prep.nb, "g_max": g_max}
+            if segments:
+                rest[7][0] = segments[0].samples  # the halo's samples are not its own
+                shapes["segment"] = segments[0]
             return Prepared("light", sample_rate, n_channels, len(unpacked),
                             (prep.scalars, prep.buf, prep.meta, prep.inv) + tuple(rest),
                             (prep.buf, prep.meta, rest[1], rest[6]),
-                            {"nb": prep.nb, "g_max": g_max}, time.perf_counter() - t0)
+                            shapes, time.perf_counter() - t0)
 
     def prepare_heavy(self, unpacked: list, sample_rate: int,
                       n_channels: int) -> Prepared:
@@ -879,6 +1047,12 @@ class Runner:
 
             batch = self._launch(run, prepared, h2d_s, copy, album, stages)
             batch.span = up
+            if up is not None and copy is not None:
+                # The allocator hands a batch its memory as it is enqueued,
+                # so the batch that raised the peak is this one.
+                tracing.gauge("device.peak_bytes",
+                              torch.cuda.max_memory_allocated(self.device),
+                              at=_batch_name(prepared))
             return batch
 
     def _stage_marker(self, stages: list):
@@ -977,6 +1151,27 @@ class Runner:
         return self.collect(
             self.dispatch_light(unpacked, sample_rate, n_channels)
         )
+
+    def analyze_track_light(self, u):
+        """Analyze one light-unpacked track (fe.unpack_data_light_packed):
+        one batch, or, where it is over segment_plan's budget at ROWS_CAP,
+        its segments in order, each dispatched before the one ahead of
+        it is collected; the same host arrays as analyze_unpacked_light
+        gives for one track."""
+        sr, nch = u.sample_rate, u.n_channels
+        plan = segment_plan(u.n, sr, nch, ROWS_CAP)
+        if plan is None:
+            return self.analyze_unpacked_light([u], sr, nch)
+        hists, peaks, ahead = [], [], deque()
+        for seg in split_track(u, plan):
+            ahead.append(self.dispatch_light([seg], sr, nch))
+            if len(ahead) > 1:
+                hist, _, peak = self.collect(ahead.popleft())
+                hists.append(hist[0])
+                peaks.append(peak[0])
+        hist, _, peak = self.collect(ahead.popleft())
+        hist, loud, peak = combine_segments(hists + [hist[0]], peaks + [peak[0]])
+        return hist[None], np.array([loud]), np.array([peak], np.float32)
 
     def analyze_unpacked(self, unpacked: list, sample_rate: int,
                          n_channels: int):
@@ -1188,9 +1383,11 @@ class BatchResult:
 
 def _retryable(e: BaseException) -> bool:
     """Device memory pressure that halving a batch can relieve: the
-    caching allocator's out-of-memory error. A CUDA error a kernel launch
-    reported (_build.check) is not: an illegal address is sticky."""
-    return isinstance(e, torch.cuda.OutOfMemoryError)
+    caching allocator's out-of-memory error; and a segment launched before
+    the one ahead of it had left its state, which is launched again after
+    that one. A CUDA error a kernel launch reported (_build.check) is not:
+    an illegal address is sticky."""
+    return isinstance(e, (torch.cuda.OutOfMemoryError, CarryMissing))
 
 
 def _est_resident_bytes(ups) -> int:
@@ -1337,9 +1534,13 @@ def analyze_library(
     runs the host-decoded route (Runner.prepare_heavy). file_type="aac"
     scans AAC/M4A files the same way (buckets, batches, admission,
     halving), on the route device_prep names (aac.use_device_prep);
-    rows_cap defaults to 640,000 granule-channel rows for MP3 and
-    AAC_ROWS_CAP lanes for AAC. A track's result depends neither on the
-    batch it rode in nor on the Runner that batch went to.
+    rows_cap defaults to ROWS_CAP granule-channel rows for MP3 and
+    AAC_ROWS_CAP lanes for AAC. An MP3 track on the light route over
+    rows_cap rows or rows_cap / 2 granule-times is cut into segments
+    (segment_plan), each a batch of its own, dealt in order to one Runner,
+    which carries the decoder and filter state from one to the next; their
+    histograms add and their peaks give the largest. A track's result depends neither on
+    the batch it rode in nor on the Runner that batch went to.
 
     A file that fails to read or walk becomes a failed TrackOutcome and
     the scan goes on. A batch whose dispatch runs out of device memory
@@ -1358,7 +1559,7 @@ def analyze_library(
     codec = (_aac_codec(group.runners[0], device_prep) if file_type == "aac"
              else _mp3_codec(group.runners[0], device_entropy))
     if rows_cap is None:
-        rows_cap = AAC_ROWS_CAP if file_type == "aac" else 640_000
+        rows_cap = AAC_ROWS_CAP if file_type == "aac" else ROWS_CAP
     t0 = time.monotonic()
     if wave_size is None:
         wave_size = 4 * max_batch
@@ -1366,16 +1567,25 @@ def analyze_library(
 
     outcomes: dict[int, TrackOutcome] = {}
     buckets: dict[tuple[int, int], list] = {}
+    # A segmented track's answers so far: its segments' histograms and
+    # peaks, how many are still out, the first failure.
+    parts: dict[int, dict] = {}
+    segmented_album = np.zeros(hi.HISTOGRAM_SIZE, np.int64)
     audio_seconds = 0.0
     lanes = [_Lane(r, album) for r in group.runners]
 
     _unpack, prepare = codec.unpack, codec.prepare
 
-    def _dispatch(lane, ups, sr, nch):
-        return lane.runner.launch(prepare(ups, sr, nch), album=lane.album)
+    def _album(lane, ups):
+        """The lane's album sum, which a segment's histogram joins only
+        with its whole track (_finish_batch)."""
+        return None if isinstance(ups[0], Segment) else lane.album
 
-    def _launch(lane, prepared):
-        return lane.runner.launch(prepared.result(), album=lane.album)
+    def _dispatch(lane, ups, sr, nch):
+        return lane.runner.launch(prepare(ups, sr, nch), album=_album(lane, ups))
+
+    def _launch(lane, prepared, album):
+        return lane.runner.launch(prepared.result(), album=album)
 
     def _dispatch_collect_halving(lane, ups, idxs, sr, nch):
         """Runs on the lane's uploader thread after an out-of-memory
@@ -1405,7 +1615,31 @@ def analyze_library(
             return (_dispatch_collect_halving(lane, ups[:mid], idxs[:mid], sr, nch)
                     + _dispatch_collect_halving(lane, ups[mid:], idxs[mid:], sr, nch))
 
+    def _segment_done(i, collected):
+        """Take in one segment's answer; its track's (hist, loudness, peak)
+        once every segment is in, an Exception if one failed, else None."""
+        part = parts[i]
+        part["left"] -= 1
+        if isinstance(collected, Exception):
+            part["error"] = part["error"] or collected
+        else:
+            part["hists"].append(collected[0][0])
+            part["peaks"].append(collected[2][0])
+        if part["left"]:
+            return None
+        del parts[i]
+        if part["error"] is not None:
+            return part["error"]
+        hist, loud, peak = combine_segments(part["hists"], part["peaks"])
+        if album:
+            segmented_album[:] += hist
+        return hist[None], [loud], [peak]
+
     def _finish_batch(idxs, sr, collected):
+        if len(idxs) == 1 and idxs[0] in parts:
+            collected = _segment_done(idxs[0], collected)
+            if collected is None:
+                return
         if isinstance(collected, Exception):
             # One track that failed even after halving and the backoff: an
             # isolated failure (no result, no checkpoint), not a dead scan.
@@ -1441,7 +1675,13 @@ def analyze_library(
         except Exception as e:
             if not _retryable(e):
                 raise
-            tracing.count("oom.retries")
+            part = parts.get(idxs[0]) if isinstance(ups[0], Segment) else None
+            if part is not None and part["error"] is not None:
+                # A segment after one that failed: its track has no answer.
+                _finish_batch(idxs, sr, part["error"])
+                return
+            if not isinstance(e, CarryMissing):
+                tracing.count("oom.retries")
             retried = lane.uploader.submit(tracing.carry(_dispatch_collect_halving),
                                             lane, ups, idxs, sr, nch)
             with tracing.span("collect"):
@@ -1459,19 +1699,30 @@ def analyze_library(
             or (len(lane.inflight) >= 2
                 and lane.queued_bytes() + est > inflight_bytes))
 
-    def flush_bucket(key, members):
+    def flush_bucket(key, members, lane=None):
         sr, nch = key
         idxs = [i for i, _ in members]
         ups = [u for _, u in members]
         est = codec.est_bytes(ups)
-        lane = min(lanes, key=_Lane.queued_bytes)  # ties go to the first
+        if lane is None:
+            lane = min(lanes, key=_Lane.queued_bytes)  # ties go to the first
         if must_wait(lane, est):
             with tracing.span("admit"):
                 while must_wait(lane, est):
                     collect_one(lane)
         prepared = preppers.submit(tracing.carry(prepare), ups, sr, nch)
-        lane.inflight.append((lane.uploader.submit(tracing.carry(_launch), lane, prepared),
+        lane.inflight.append((lane.uploader.submit(tracing.carry(_launch), lane, prepared,
+                                                   _album(lane, ups)),
                               idxs, sr, nch, ups, est))
+
+    def flush_segments(i, u, plan):
+        """A track over the rows cap: its segments in order, each a batch
+        of its own, all on one Runner."""
+        segments = split_track(u, plan)
+        parts[i] = {"left": len(segments), "hists": [], "peaks": [], "error": None}
+        lane = min(lanes, key=_Lane.queued_bytes)
+        for seg in segments:
+            flush_bucket((u.sample_rate, u.n_channels), [(i, seg)], lane)
 
     def flush_ready(key, members, final=False):
         """Cut length-sorted, rows-capped batches off a bucket: whole
@@ -1499,18 +1750,25 @@ def analyze_library(
         for wstart, wend in zip(bounds, bounds[1:]):
             widx = list(range(wstart, wend))
             wave = [paths[i] for i in widx]
+            # Taken in order as each walk ends: a track over the rows cap
+            # starts its segments while the wave's later files are walked.
             if walkers is not None and len(wave) > 1:
-                unpacked = list(walkers.map(tracing.carry(walk), wave))
+                unpacked = walkers.map(tracing.carry(walk), wave)
             else:
-                unpacked = [walk(p) for p in wave]
+                unpacked = map(walk, wave)
             for i, path, (u, err) in zip(widx, wave, unpacked):
                 if err is not None:
                     outcomes[i] = TrackOutcome(path=str(path), ok=False,
                                                error=str(err), exception=err)
                     continue
                 sr, nch = u.sample_rate, u.n_channels or 1
-                buckets.setdefault((sr, nch), []).append((i, u))
                 audio_seconds += codec.seconds(u)
+                plan = (segment_plan(u.n, sr, nch, rows_cap)
+                        if codec.file_type == "mp3" and device_entropy else None)
+                if plan is None:
+                    buckets.setdefault((sr, nch), []).append((i, u))
+                else:
+                    flush_segments(i, u, plan)
             for key, members in buckets.items():
                 flush_ready(key, members)
         for key, members in buckets.items():
@@ -1534,5 +1792,6 @@ def analyze_library(
     if album and ok:
         result.album_histogram = _sum_on_first(
             [lane.album for lane in lanes], lanes[0].runner.device).cpu().numpy()
+        result.album_histogram += segmented_album
         result.album_peak = max(t.result.peak for t in ok)
     return result

@@ -9,7 +9,9 @@ through carry() keeps the submitting span as its parent, and the first
 span the pool thread opens for it also records when it was submitted
 (a prep span's queue wait is its start minus that). A counter adds up
 what a layer did: padded and real rows, out-of-memory retries, kernel
-launches and calls of their plain versions.
+launches and calls of their plain versions. A gauge keeps the largest
+value a layer reported, and what reported it: the device memory allocated
+once a batch is enqueued, and that batch.
 
 Recording is on while a torch.profiler session runs, which every thread
 sees through torch's module flag torch.autograd.profiler._is_profiler_enabled,
@@ -23,7 +25,7 @@ written to disk) until the next one starts: snapshot() returns it as plain
 Python data. recording() does not nest, and a profiler session opened
 inside it records into its record. The spans are kept in a bounded store
 (STORE_SPANS, the rest counted as dropped); per-name totals (count, wall,
-self time) and the counters are never dropped.
+self time), the counters and the gauges are never dropped.
 
 Clock: time.time_ns(), the Unix-epoch nanoseconds the profiler stamps its
 own events with, so spans line up with a saved trace. On the caller's
@@ -87,6 +89,8 @@ class _Record:
         self.dropped = 0
         self.totals: dict[str, list] = {}  # name -> [count, wall ns, self ns]
         self.counters: dict[str, int] = {}
+        self.gauges: dict[str, int] = {}
+        self.gauge_at: dict[str, str | None] = {}
         self.busy: list[tuple[int, int]] = []
         self.sealed = False
         self.snap: dict | None = None
@@ -248,6 +252,18 @@ def count(name: str, n: int = 1) -> None:
         rec.counters[name] = rec.counters.get(name, 0) + n
 
 
+def gauge(name: str, value: int, at: str | None = None) -> None:
+    """Keep the largest value the gauge `name` was given while recording is
+    on, and `at`, what reported it (the first report of that value)."""
+    if not _gate._is_profiler_enabled:
+        return
+    rec = _live()
+    with rec.lock:
+        if name not in rec.gauges or value > rec.gauges[name]:
+            rec.gauges[name] = value
+            rec.gauge_at[name] = at
+
+
 def counter(name: str) -> int:
     """The counter's value in the current record (0 where it never counted)."""
     rec = _record
@@ -380,12 +396,15 @@ def snapshot() -> dict:
     """The current record as plain data: {"spans": [dict per span, fields
     _FIELDS], "dropped": spans the store had no room for, "totals": {name:
     {"count", "wall_s", "self_s"}} (self: wall less the same thread's child
-    spans), "counters": {name: n}, "busy": [(start ns, end ns)], "idle":
-    idle_partition over the host spans}. Taken while nothing records, it
-    is kept: later snapshots return it until another record starts."""
+    spans), "counters": {name: n}, "gauges": {name: largest value},
+    "gauge_at": {name: what reported it}, "busy": [(start ns, end ns)],
+    "idle": idle_partition over the host spans}.
+    Taken while nothing records, it is kept: later snapshots return it
+    until another record starts."""
     rec = _record
     if rec is None:
-        return {"spans": [], "dropped": 0, "totals": {}, "counters": {}, "busy": [],
+        return {"spans": [], "dropped": 0, "totals": {}, "counters": {}, "gauges": {},
+                "gauge_at": {}, "busy": [],
                 "idle": idle_partition([], [])}
     if not _gate._is_profiler_enabled:
         rec.sealed = True
@@ -398,6 +417,8 @@ def snapshot() -> dict:
             "totals": {k: {"count": c, "wall_s": w / 1e9, "self_s": s / 1e9}
                        for k, (c, w, s) in rec.totals.items()},
             "counters": dict(rec.counters),
+            "gauges": dict(rec.gauges),
+            "gauge_at": dict(rec.gauge_at),
             "busy": list(rec.busy),
         }
     out["spans"] = [dict(zip(_FIELDS, s)) for s in spans]

@@ -636,3 +636,52 @@ def test_kernel_build_entry_point(dev):
     path, seconds, unit = proc.stdout.split()
     assert path == _build.LIB_PATH and os.path.exists(path)
     assert float(seconds) > 0 and unit == "s"
+
+
+@pytest.mark.parametrize("clip,hours", [(smoke.HOT_TRACK, 6.0), (smoke.MONO_TRACK, 5.0)])
+def test_a_long_episode_runs_in_segments_in_bounded_memory(clip, hours, dev, tmp_path):
+    """A 6 h tiled 44.1 kHz stereo episode and a 5 h tiled 22.05 kHz mono
+    MPEG-2 one, each over the rows cap, through analyze_track_internal
+    and scan_files: equal to each other, within 0.005 dB and a relative
+    2e-5 in peak of the benchmark's float64 reference
+    (benchmark/reference/), at most 16 GB of device memory, and no batch
+    over the rows cap."""
+    import sys
+
+    from mp3rgain_tpu_torch import analysis
+    from mp3rgain_tpu_torch.testing import tile
+
+    bench = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "benchmark")
+    sys.path.insert(0, bench)
+    try:
+        from reference.track import Analyzer
+    finally:
+        sys.path.remove(bench)
+    src = _clip(clip)
+    layout = tile.mp3_layout(src)
+    path = str(tmp_path / "episode.mp3")
+    tile.tile_mp3(src, path, tile.copies_for(layout, int(hours * 3600 * layout.sample_rate)))
+    runner = pr.Runner(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tracing.recording():
+        one = analysis.analyze_track_internal(path, runner=runner)
+        res = scan.scan_files([path], runner=runner)
+        peak_bytes = torch.cuda.max_memory_allocated()
+        snap = tracing.snapshot()
+    got = res.results[path]
+    assert (got.gain_db, got.peak) == (one.result.gain_db, one.result.peak)
+    assert np.array_equal(res.histograms[path], one.histogram)
+    assert peak_bytes <= 16e9, peak_bytes
+    assert 0 < snap["gauges"]["device.peak_bytes"] <= peak_bytes
+    assert ", segment " in snap["gauge_at"]["device.peak_bytes"]
+    segments = snap["counters"]["segments"]
+    assert segments >= 4 and snap["counters"]["tracks.segmented"] == 2
+    assert snap["counters"]["rows.padded"] <= pr.ROWS_CAP * segments
+    assert snap["totals"]["carry"]["count"] == segments - 2
+    with open(path, "rb") as f:
+        ref = Analyzer().track(f.read())
+    assert abs(got.gain_db - ref.gain) <= 0.005
+    assert abs(got.peak - ref.peak) / ref.peak <= 2e-5
