@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the port's host library (g++, mp3rgain_tpu_torch/_native) and the
-five hand-written CUDA C++ kernels from the sources in this checkout with
-nvcc, one process per source, all started together with the g++ build:
-the Huffman decode K1 (csrc/entropy_decode.cu, which writes each spectrum
+Builds the port's host libraries (g++, mp3rgain_tpu_torch/_native and the
+lane planner _host/lane_plan.cpp) and the six hand-written CUDA C++ kernels
+from the sources in this checkout with nvcc, one process per source, all
+started together with the g++ build: the lane pack K0 (csrc/lane_pack.cu,
+which builds K1's lane-major input from rows copied in walk order), the
+Huffman decode K1 (csrc/entropy_decode.cu, which writes each spectrum
 straight into the row its consumer reads), the requantize + stereo pass
 K2 (csrc/requant_stereo.cu), the split-bf16 class-core GEMM K3
 (csrc/class_core_gemm.cu), the hybrid synthesis K4
@@ -14,8 +16,9 @@ K2 (csrc/requant_stereo.cu), the split-bf16 class-core GEMM K3
 (csrc/overlap_polyphase.cu). Holds each against its plain PyTorch version
 on the card and times it beside its bound (K3 beside one cuBLAS call
 computing the same product, K4 and K5 beside the dense torch.matmul
-products of their plain versions, at a 640,000-row batch; the port never
-calls those on the card), then sends
+products of their plain versions and K0 beside one indexing call doing its
+gather, at a 640,000-row batch; the port never calls those on the card),
+then sends
 hostile input through them (seeded byte flips, truncations and splices of
 the committed clips and crafted streams, and an AAC stream whose noise
 energies overflow float32: K1, K2 and K3 against their plain versions on
@@ -24,7 +27,7 @@ CPU, scan_files with the mutated files among the library's), so that every
 later phase runs after them in the same process; then runs the
 port's two routes over 64 copies of a 60 s, 44.1 kHz joint-stereo
 192 kbps track, the JAX package's bench batch: the light main path
-(Runner.analyze_unpacked_light, K1, K2, K4, K5) and the host-decoded route
+(Runner.analyze_unpacked_light, K0, K1, K2, K4, K5) and the host-decoded route
 (Runner.analyze_unpacked, K3), each with the launch counts set to 0 just
 before it and read just after; the light device phase split by stage
 (CUDA events, median of 3); then the unfused light tail against the
@@ -41,7 +44,7 @@ library scan, this port's main path for a library: scan.scan_files over
 64 of a 3 s 22.05 kHz mono clip, one file of seeded random bytes, one
 zero-payload ADTS file, 128 copies of the 60 s M4A and 64 of a 3 s
 transient M4A) on the pipelined Runner, every copy held to its
-single-track result, the K1/K2/K4/K5 launches counted per MP3 device batch, the
+single-track result, the K0/K1/K2/K4/K5 launches counted per MP3 device batch, the
 resume from its manifest, and cli.main -a over 160 of the files; then
 cli.main -r and -x over 15 files, the per-track path, on the shared
 Runner and with a new Runner per file; then the data-parallel layer on the
@@ -71,8 +74,8 @@ streams from the committed clips on this host).
 Every check raises on failure; there is no CPU branch.
 Output, one phase per line:
 
-  device / nvidia-smi name and power limit / build seconds and K1-K5
-  registers, shared memory and spills / K1 to K5 agreement, times
+  device / nvidia-smi name and power limit / build seconds and K0-K5
+  registers, shared memory and spills / K0 to K5 agreement, times
   and bounds / hostile input: MP3 raw-bits, MP3 host-decoded, AAC q
   route, scan / light slice launch counts, CPU agreement / light stage
   split / heavy slice launch counts, CPU and light agreement, light
@@ -82,7 +85,7 @@ Output, one phase per line:
   decode_file, byte surgery, peak contract, entry(), the phase's wall /
   real_library: one line per rate-matrix track and route, one per ladder
   track, the library line, the phase's wall and launches / times / a
-  JSON line of per-kernel results (K1/K2/K4/K5 launches from the library scan,
+  JSON line of per-kernel results (K0/K1/K2/K4/K5 launches from the library scan,
   and each kernel's launches in the real_library phase) /
   last line {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -143,13 +146,14 @@ class Launches:
         self._base = self._now()
 
 
+K0 = Launches("lane_pack")
 K1 = Launches("entropy_decode_rows")
 K2 = Launches("requant_stereo")
 K3 = Launches("class_core_gemm")
 K4 = Launches("hybrid_synthesis")
 K5 = Launches("overlap_polyphase")
-KERNELS = (K1, K2, K3, K4, K5)
-LIGHT = (K1, K2, K4, K5)  # the kernels of every MP3 light batch
+KERNELS = (K0, K1, K2, K3, K4, K5)
+LIGHT = (K0, K1, K2, K4, K5)  # the kernels of every MP3 light batch a Runner runs
 
 
 def plain_calls() -> int:
@@ -334,7 +338,7 @@ def library_phase(dev, card, bench_u, bench_loud, bench_peak, bench_windows, cli
               and aac_batches >= -(-(n_aac + 1) // (4 * scan.BATCH_THRESHOLD)),
               f"routes of the {n_batches} batches: {[t['route'] for t in timings]}")
         check(all(v == mp3_batches for v in launches.values()),
-              f"K1, K2, K4 and K5 launched once per MP3 device batch ({launches}, "
+              f"K0, K1, K2, K4 and K5 launched once per MP3 device batch ({launches}, "
               f"{mp3_batches})")
         check(plain == 0, f"no plain-version calls on CUDA ({plain})")
 
@@ -909,7 +913,7 @@ def aac_phase(dev, card, runner, mp3_clip):
           and bool(np.allclose(peaks, peaks[0], rtol=1e-5)),
           "the 64 copies agree with each other")
     check(sum(c.kernel for c in KERNELS) == 0 and plain_calls() == 0,
-          "the AAC path reaches none of K1 to K5 nor their plain versions")
+          "the AAC path reaches none of K0 to K5 nor their plain versions")
     prepared = runner.prepare_aac_q([uq] * BATCH_TRACKS, 44100, 2)
     rows = prepared.arrays[0].shape[0] * prepared.arrays[0].shape[1]
     upload_mb = sum(a.nbytes for a in prepared.arrays) / 1e6
@@ -1185,7 +1189,7 @@ def multi_runner_phase(dev, card, bench_u, clips, aac_clips):
         batches = sum(len(r) for r in run["routes"])
         light = sum(route == "light" for r in run["routes"] for route in r)
         check(all(v == light for v in run["light"].values()) and light > 0,
-              f"{n} Runner(s): K1, K2, K4 and K5 launches {run['light']} equal the "
+              f"{n} Runner(s): K0, K1, K2, K4 and K5 launches {run['light']} equal the "
               f"{light} MP3 batches")
         check(run["plain"] == 0, f"{n} Runner(s): plain calls {run['plain']}")
         check(all(len(r) > 0 for r in run["routes"]) and batches > light,
@@ -1230,7 +1234,7 @@ def multi_runner_phase(dev, card, bench_u, clips, aac_clips):
         want_k = (2 + 2 * 2) if label == "light" else 0  # single x2, two shards x2
         check(all(c.kernel == want_k for c in LIGHT)
               and sum(c.plain for c in counters) == 0,
-              f"sharded {label}: K1, K2, K4, K5 launches "
+              f"sharded {label}: K0, K1, K2, K4, K5 launches "
               f"{[c.kernel for c in LIGHT]}, {want_k} wanted")
         sharded[label] = walls
     for c in counters:
@@ -1254,7 +1258,7 @@ def multi_runner_phase(dev, card, bench_u, clips, aac_clips):
           f"({len(mp3_paths)} MP3, {len(aac_paths)} M4A, {audio_s / 3600:.3f} audio-hours), "
           f"scans in turns (one, two, two, one Runner on {dev}): {fmt(1)}; {fmt(2)}; every "
           f"track's histogram, loudness and peak exactly equal in all four scans, album "
-          f"histograms equal the host sums, K1 = K2 = K4 = K5 launches = MP3 batches "
+          f"histograms equal the host sums, K0 = K1 = K2 = K4 = K5 launches = MP3 batches "
           f"({runs[1][1]['light']['entropy_decode_rows']}), plain calls 0; one "
           f"{BATCH_TRACKS}-track batch split over the two Runners against the single "
           f"dispatch (exactly equal), walls in turns (single, sharded, sharded, single): "
@@ -1548,7 +1552,7 @@ def oracle_phase(dev, card):
         reset()
         _, louds, peaks = runner.analyze_unpacked_light([light], sr, light.n_channels)
         check(all(c.kernel >= 1 for c in LIGHT) and plain_calls() == 0,
-              f"{name}: light route launched K1, K2, K4 and K5, no plain call")
+              f"{name}: light route launched K0, K1, K2, K4 and K5, no plain call")
         hold(f"{name} light route", PINK_REF - float(louds[0]), float(peaks[0]),
              ref_g, ref_p, "CPU decode")
         full = fe.unpack_data(data)
@@ -2220,7 +2224,7 @@ def real_library_phase(dev, card):
     launches = {c.name: c.kernel for c in KERNELS}
     plain = plain_calls()
     check(all(v >= 1 for v in launches.values()) and plain == 0,
-          f"real_library: K1 to K5 launched ({launches}), no plain call ({plain})")
+          f"real_library: K0 to K5 launched ({launches}), no plain call ({plain})")
     del runner
     torch.cuda.empty_cache()
     ref_s = [f.result()["s"] for f in futures.values()]
@@ -2249,7 +2253,7 @@ def main() -> None:
     print(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"nvidia-smi: {smi}", flush=True)
 
-    from mp3rgain_tpu_torch import _build, analysis, native
+    from mp3rgain_tpu_torch import _build, analysis, lane_plan, native
     from mp3rgain_tpu_torch.decode import class_core as cc
     from mp3rgain_tpu_torch.decode import entropy_kernel as ek
     from mp3rgain_tpu_torch.decode import frontend as fe
@@ -2270,6 +2274,7 @@ def main() -> None:
         t = time.perf_counter()
         try:
             native.build(force=True)
+            lane_plan.build(force=True)
         except Exception as e:  # re-raised below
             host["error"] = e
         host["s"] = time.perf_counter() - t
@@ -2281,6 +2286,7 @@ def main() -> None:
     if "error" in host:
         raise host["error"]
     native._lib.load()
+    lane_plan._lib.load()
     k3_smem = _build.library().mg_cuda_class_core_gemm_smem_bytes()
     resources = {}  # kernel -> its distinct ptxas register, smem and spill lines
     entry = None
@@ -2288,7 +2294,8 @@ def main() -> None:
         if "Compiling entry function" in ln:
             # K1's two small row-fill passes (mark_rows, zero_rows) are not
             # listed; K2 has one entry per channel count.
-            entry = ("K1" if "entropy_decode_rows_kernel" in ln else
+            entry = ("K0" if "lane_pack_kernel" in ln else
+                     "K1" if "entropy_decode_rows_kernel" in ln else
                      "K2" if "requant_stereo_kernel" in ln else
                      "K3" if "class_core_gemm_wgmma" in ln else
                      "K4" if "hybrid_synthesis_kernel" in ln else
@@ -2297,11 +2304,11 @@ def main() -> None:
             line = " ".join(ln.replace("ptxas info    :", "").split())
             if line not in resources.setdefault(entry, []):
                 resources[entry].append(line)
-    check(set(resources) == {"K1", "K2", "K3", "K4", "K5"},
-          f"ptxas reported K1 to K5: {sorted(resources)}")
+    check(set(resources) == {"K0", "K1", "K2", "K3", "K4", "K5"},
+          f"ptxas reported K0 to K5: {sorted(resources)}")
     resources["K3"].append(f"{k3_smem} bytes dynamic smem")
     regs = [f"{k}: {', '.join(v)}" for k, v in sorted(resources.items())]
-    print(f"build: host library g++ {host['s']:.2f} s; K1 to K5 nvcc {nvcc_s:.2f} s "
+    print(f"build: host libraries g++ {host['s']:.2f} s; K0 to K5 nvcc {nvcc_s:.2f} s "
           f"({'; '.join(regs)})", flush=True)
 
     # --- 3. inputs -----------------------------------------------------------
@@ -2399,6 +2406,54 @@ def main() -> None:
           f"channel-major rows), input-order rows equal the host decoder; kernel "
           f"{k1_ms:.3f} ms, plain {k1_plain_ms:.1f} ms, bound {k1_bound[0]:.3f} ms "
           f"({k1_bound[1]}; {k1_bound[0] / k1_ms:.1%} of it) {card}", flush=True)
+
+    # --- 4b. K0: the lane pack at the rows cap against its plain version -------
+    # The bench track's rows to SYNTH_ROWS (a rescan batch at the rows cap),
+    # planned and copied in walk order on the host; K0 must rebuild what the
+    # host pack (prepare_batch) gives.
+    reps, rem = divmod(SYNTH_ROWS, u.n)
+    k0_rows = ([u.md] * reps + [u.md[:rem]], [u.meta] * reps + [u.meta[:rem]])
+    c = ek.prepare_batch_compact(*k0_rows, quantize_nb=True)
+    host_pack = ek.prepare_batch(*k0_rows, quantize_nb=True)
+    k0_args = to_dev((c.scalars, c.words, c.word_off, c.meta, c.order))
+    k0_shapes = {"g_real": c.g_real, "g_pad": c.g_pad}
+    got = ek.lane_pack(*k0_args, **k0_shapes)
+    want = ek.lane_pack_reference(*k0_args, **k0_shapes)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "K0 buf and meta equal the plain version")
+    check(torch.equal(got[0][: c.g_real].cpu(), torch.from_numpy(host_pack.buf[: c.g_real]))
+          and torch.equal(got[1].cpu(), torch.from_numpy(host_pack.meta.view(np.int16))),
+          "K0 buf and meta equal the host pack")
+    del want, host_pack
+    k0_bound = bound_of(nbytes(*k0_args, *got))
+    k0_ms = cuda_ms(lambda: ek.lane_pack(*k0_args, **k0_shapes), 10)
+    k0_plain_ms = cuda_ms(lambda: ek.lane_pack_reference(*k0_args, **k0_shapes), 2)
+    # The same gather as one PyTorch indexing call, byte swap aside: each
+    # buffer word's index in the compact words (the zero past them for none).
+    order_l = k0_args[4].long()
+    real = order_l < c.n
+    offs = k0_args[2].long()
+    start = torch.where(real, offs[torch.where(real, order_l, 0)], 0)
+    cnt = torch.where(real, offs[torch.where(real, order_l + 1, 0)] - start, 0)
+    lane = torch.arange(c.nb * ek.LANES, device=dev)
+    sg_off = k0_args[0][:, 3:].reshape(-1).long()
+    w8 = torch.diff(sg_off, append=sg_off.new_tensor([c.g_real]))[lane // ek.SUBG]
+    base = sg_off[lane // ek.SUBG] * 8 * ek.SUBG + lane % ek.SUBG
+    src = torch.full((c.g_pad * 8 * ek.SUBG,), len(c.words), dtype=torch.int64, device=dev)
+    for k in range(int(w8.max()) * 8):
+        line = k < w8 * 8
+        src[(base + k * ek.SUBG)[line]] = torch.where(k < cnt, start + k, len(c.words))[line]
+    words_z = torch.cat([k0_args[1], k0_args[1].new_zeros(1)])
+    index_ms = cuda_ms(lambda: words_z[src], 10)
+    del order_l, real, offs, start, cnt, lane, base, src, words_z, got
+    print(f"K0 lane_pack (CUDA C++): exact against the plain version and the host "
+          f"pack at {c.n} rows (nb={c.nb}, {c.g_real} of {c.g_pad} word-groups, "
+          f"{len(c.words)} compact words); kernel {k0_ms:.4f} ms, plain "
+          f"{k0_plain_ms:.1f} ms, one indexing call (words[src]) {index_ms:.4f} ms, "
+          f"bound {k0_bound[0]:.4f} ms ({k0_bound[1]}; {k0_bound[0] / k0_ms:.1%} of it) "
+          f"{card}", flush=True)
+    del k0_args, c
 
     # --- 5. K2: CUDA kernel against the plain version -------------------------
     tail = pr.LightTail(44100, 2).to(dev)
@@ -2627,7 +2682,8 @@ def main() -> None:
     n_plain = plain_calls()
     timing = runner.timings[-1]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(all(v == 1 for v in counts.values()), f"K1, K2, K4 and K5 launched once: {counts}")
+    check(all(v == 1 for v in counts.values()),
+          f"K0, K1, K2, K4 and K5 launched once: {counts}")
     check(n_plain == 0, f"no plain-version calls on CUDA ({n_plain})")
     check(hist.shape == (BATCH_TRACKS, 12000), "histogram shape")
     check(bool(np.isfinite(louds).all() and np.isfinite(peaks).all()),
@@ -2649,9 +2705,10 @@ def main() -> None:
           f"peak {cpu_peaks[0]:.6f}, windows {int(cpu_hist.sum())}", flush=True)
 
     # The light device phase by stage: CUDA events recorded as each stage
-    # of analysis_core_light has been enqueued, median of 3 runs.
-    prep, rest, g_lt = pr.prepare_batch_arrays_light([u] * BATCH_TRACKS, 2)
-    batch = to_dev((prep.scalars, prep.buf, prep.meta, prep.inv) + tuple(rest))
+    # of analysis_core_light_compact has been enqueued, median of 3 runs.
+    prep, rest, g_lt = pr.prepare_batch_arrays_light_compact([u] * BATCH_TRACKS, 2)
+    batch = to_dev((prep.scalars, prep.words, prep.word_off, prep.meta, prep.order,
+                    prep.inv) + tuple(rest))
     runs = []
     for _ in range(3):
         events = []
@@ -2663,16 +2720,17 @@ def main() -> None:
 
         torch.cuda.synchronize()
         mark("start")
-        pr.analysis_core_light(runner.tail(44100, 2), *batch, nb=prep.nb, g_max=g_lt,
-                               on_stage=mark)
+        pr.analysis_core_light_compact(runner.tail(44100, 2), *batch, nb=prep.nb,
+                                       g_max=g_lt, g_real=prep.g_real, g_pad=prep.g_pad,
+                                       on_stage=mark)
         torch.cuda.synchronize()
         runs.append({st: a.elapsed_time(b)
                      for (_, a), (st, b) in zip(events, events[1:])})
     del batch
     stage_ms = {st: float(np.median([r[st] for r in runs])) for st in runs[0]}
     stage_ms["gathers"] += stage_ms.pop("row map")
-    order = ["K1", "gathers", "K2", "hybrid GEMMs", "overlap-add + polyphase", "IIR",
-             "histogram + index", "peak"]
+    order = ["lane pack", "K1", "gathers", "K2", "hybrid GEMMs", "overlap-add + polyphase",
+             "IIR", "histogram + index", "peak"]
     check(sorted(order) == sorted(stage_ms), f"stages {sorted(stage_ms)}")
     total_ms = sum(stage_ms.values())
     print(f"light stages {card} (CUDA events, median of 3; gathers = row map + "

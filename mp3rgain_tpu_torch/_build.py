@@ -130,6 +130,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mg_cuda_hybrid_synthesis.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, vp]
     lib.mg_cuda_overlap_polyphase.restype = ctypes.c_int
     lib.mg_cuda_overlap_polyphase.argtypes = [vp, vp, vp, vp, i, i, vp]
+    lib.mg_cuda_lane_pack.restype = ctypes.c_int
+    lib.mg_cuda_lane_pack.argtypes = [vp, i, vp, vp, vp, vp, i, i, i, i, vp, vp, vp]
 
 
 def library() -> ctypes.CDLL:

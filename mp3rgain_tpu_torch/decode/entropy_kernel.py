@@ -3,7 +3,18 @@
 Counterpart of mp3rgain_tpu/decode/entropy_kernel.py. The host side
 (prepare_batch and the helpers it needs) is a copy of the JAX module's,
 held bit-identical to it by the tests: the port never imports that module
-because it imports jax at the top. The device side is:
+because it imports jax at the top. The main path plans on the host and
+packs on the device instead, held to prepare_batch by the tests:
+
+  - prepare_batch_compact: prepare_batch's lane order, unsort permutation,
+    block scalars and shapes from the port's native planner
+    (_host/lane_plan.cpp), with each row's used words and packed meta
+    copied in walk order in place of the lane-major transpose;
+  - lane_pack: on CUDA tensors, launches csrc/lane_pack.cu (K0), which
+    builds prepare_batch's buf and meta from those on the card; on CPU
+    tensors, runs lane_pack_reference.
+
+The decode is:
 
   - decode_rows: on CUDA tensors, launches the hand-written kernel
     csrc/entropy_decode.cu, which replaces the Pallas kernel
@@ -330,8 +341,202 @@ def prepare_batch(md, meta, quantize_nb: bool = False,
 
 
 # ---------------------------------------------------------------------------
+# Host plan for the card's lane pack (the port's own; no JAX counterpart).
+# ---------------------------------------------------------------------------
+
+# The meta columns _host/lane_plan.cpp reads, in its F_* order.
+_PLAN_FIELDS = np.array(
+    [fe.LM_P0, fe.LM_P23, fe.LM_BVP, fe.LM_R0P, fe.LM_R1P, fe.LM_G0, fe.LM_G1,
+     fe.LM_G2, fe.LM_L0, fe.LM_L1, fe.LM_L2, fe.LM_GCNT], dtype=np.int32)
+
+
+@dataclass
+class CompactEntropy:
+    """prepare_batch's plan of a batch without its transpose: the kernel
+    inputs lane_pack builds buf and meta from on the device.
+
+    The arrays are the exact device transfer payload; `pooled` holds the
+    buffer-pool arrays they view (utils.bufpool.give them once the device
+    copy has completed)."""
+
+    scalars: np.ndarray  # (nb, 3 + SUBG_N) int32, prepare_batch's
+    words: np.ndarray  # (word_off[n],) int32: each row's used md words, walk order
+    word_off: np.ndarray  # (n + 1,) int32: row r's words are words[word_off[r]:word_off[r + 1]]
+    meta: np.ndarray  # (n, META_ROWS) uint16: each row's packed meta, walk order
+    order: np.ndarray  # (npad,) int32: sorted lane -> input row (>= n: padding)
+    inv: np.ndarray  # (npad,) int32: input row -> sorted lane, prepare_batch's
+    nb: int
+    n: int
+    g_real: int  # word-groups the subgroups own
+    g_pad: int  # buf's word-groups, prepare_batch's
+    pooled: tuple
+
+
+def _track_table(arrays, row_bytes: int):
+    """(base pointers uint64, row strides in units of row_bytes int64) of
+    per-track row arrays."""
+    base = np.array([a.ctypes.data for a in arrays], dtype=np.uint64)
+    stride = np.array([a.strides[0] // row_bytes for a in arrays], dtype=np.int64)
+    return base, stride
+
+
+def prepare_batch_compact(md, meta, quantize_nb: bool = False,
+                          force_nb: int | None = None,
+                          force_g_pad: int | None = None) -> CompactEntropy:
+    """prepare_batch (same arguments, same order, inv, scalars, nb and
+    g_pad) in two native calls that leave the transpose to lane_pack: the
+    plan with each row's packed meta (_host/lane_plan.cpp mg_lane_plan),
+    then a copy of each row's used words in walk order (mg_lane_copy),
+    into a pooled buffer the plan's word count sizes."""
+    from ..lane_plan import _lib as plan_lib
+
+    md_list = list(md) if isinstance(md, (list, tuple)) else [md]
+    meta_list = list(meta) if isinstance(meta, (list, tuple)) else [meta]
+    md_list = [np.ascontiguousarray(m) for m in md_list]
+    meta_list = [np.ascontiguousarray(m, dtype=np.int32) for m in meta_list]
+    counts = np.array([m.shape[0] for m in md_list], dtype=np.int64)
+    n = int(counts.sum())
+    md_stride = md_list[0].shape[1] if md_list else fe.MD_STRIDE
+    md_words = md_stride // 4
+    if md_words > W8_MAX * 8:
+        raise ValueError(f"md rows of {md_stride} bytes: at most {W8_MAX * 32}")
+    if n * md_words >= 2**31:
+        raise ValueError(f"{n} rows: their words overflow int32 offsets")
+
+    nb = max(1, -(-n // LANES))
+    if quantize_nb:
+        nb = _cap(nb, NB_CAPS) if nb <= NB_CAPS[-1] else nb
+    if force_nb is not None:
+        assert force_nb >= nb, (force_nb, nb)
+        nb = force_nb
+    npad = nb * LANES
+
+    md_base, md_rs = _track_table(md_list, 1)
+    meta_base, meta_rs = _track_table(meta_list, 4)
+    order = bufpool.take((npad,), np.int32)
+    inv = bufpool.take((npad,), np.int32)
+    word_off = bufpool.take((npad + 1,), np.int32)
+    metab = bufpool.take((npad, META_ROWS), np.uint16)
+    scalars = np.empty((nb, 3 + SUBG_N), np.int32)
+    g_real = ctypes.c_int64()
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    total = plan_lib.mg_lane_plan(
+        meta_base.ctypes.data_as(u64p), meta_rs.ctypes.data_as(i64p),
+        counts.ctypes.data_as(i64p), len(meta_list), _PLAN_FIELDS.ctypes.data_as(i32p),
+        nb, LANES, SUBG, md_words, order.ctypes.data_as(i32p), inv.ctypes.data_as(i32p),
+        scalars.ctypes.data_as(i32p), word_off.ctypes.data_as(i32p),
+        metab.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)), ctypes.byref(g_real),
+    )
+    g_pad = _quantize_g(g_real.value + W8_MAX)
+    if force_g_pad is not None:
+        assert force_g_pad >= g_pad, (force_g_pad, g_pad)
+        g_pad = force_g_pad
+
+    # Pooled at a quantized length, so that batches of like size share it.
+    words = bufpool.take((_quantize_g(total),), np.int32)
+    plan_lib.mg_lane_copy(
+        md_base.ctypes.data_as(u64p), md_rs.ctypes.data_as(i64p),
+        counts.ctypes.data_as(i64p), len(md_list), word_off.ctypes.data_as(i32p),
+        words.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+    )
+    return CompactEntropy(
+        scalars=scalars, words=words[:total], word_off=word_off[: n + 1], meta=metab[:n],
+        order=order, inv=inv, nb=nb, n=n, g_real=g_real.value, g_pad=g_pad,
+        pooled=(words, metab, word_off, order, inv),
+    )
+
+
+# ---------------------------------------------------------------------------
 # Device decode.
 # ---------------------------------------------------------------------------
+
+
+def _check_pack_inputs(scalars, words, word_off, meta, order, g_real, g_pad):
+    dev = words.device
+    nb = scalars.shape[0] if scalars.dim() == 2 else -1
+    n = word_off.shape[0] - 1 if word_off.dim() == 1 else -1
+    check_tensor("scalars", scalars, torch.int32, (nb, 3 + SUBG_N), dev)
+    check_tensor("words", words, torch.int32, (None,), dev)
+    check_tensor("word_off", word_off, torch.int32, (n + 1,), dev)
+    check_tensor("meta", meta, torch.int16, (n, META_ROWS), dev)
+    check_tensor("order", order, torch.int32, (nb * LANES,), dev)
+    if not 0 <= g_real <= g_pad < 2**31 // (8 * SUBG):
+        raise ValueError(f"g_real {g_real}, g_pad {g_pad}: expected 0 <= g_real <= g_pad")
+    return dev, nb, n
+
+
+def lane_pack(scalars: torch.Tensor, words: torch.Tensor, word_off: torch.Tensor,
+              meta: torch.Tensor, order: torch.Tensor, *, g_real: int, g_pad: int):
+    """K0: prepare_batch_compact's arrays → (buf (g_pad, 8, SUBG) int32,
+    meta (nb, META_ROWS, LANES) int16), decode_rows' inputs as prepare_batch
+    makes them (uint16 meta bits in int16): each subgroup's lines of its
+    lanes' byte-swapped words, 0 past a lane's words and in padding lanes,
+    and the groups from g_real on zero. meta is the compact (n, META_ROWS)
+    packed meta in walk order (uint16 bits in int16).
+
+    CUDA tensors launch the CUDA kernel (csrc/lane_pack.cu) on the current
+    stream without synchronising; CPU tensors run lane_pack_reference."""
+    dev, nb, n = _check_pack_inputs(scalars, words, word_off, meta, order, g_real, g_pad)
+    if dev.type == "cpu":
+        return lane_pack_reference(scalars, words, word_off, meta, order,
+                                   g_real=g_real, g_pad=g_pad)
+    if dev.type != "cuda":
+        raise ValueError(f"lane_pack: unsupported device {dev}")
+    buf = torch.empty((g_pad, 8, SUBG), dtype=torch.int32, device=dev)
+    metab = torch.empty((nb, META_ROWS, LANES), dtype=torch.int16, device=dev)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.mg_cuda_lane_pack(
+            scalars.data_ptr(), scalars.shape[1], words.data_ptr(), word_off.data_ptr(),
+            meta.data_ptr(), order.data_ptr(), n, nb, g_real, g_pad, buf.data_ptr(),
+            metab.data_ptr(), stream,
+        )
+    tracing.count("launches.lane_pack")
+    _build.check(rc, "lane_pack launch")
+    return buf, metab
+
+
+def _signed32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) as the int32 of the same bits."""
+    return (v - ((v >> 31) << 32)).to(torch.int32)
+
+
+def lane_pack_reference(scalars: torch.Tensor, words: torch.Tensor,
+                        word_off: torch.Tensor, meta: torch.Tensor, order: torch.Tensor,
+                        *, g_real: int, g_pad: int):
+    """Plain torch version of lane_pack (same contract): one line of every
+    subgroup at a time, each lane's word k gathered through order and
+    word_off, byte-swapped and scattered to its place in buf."""
+    dev, nb, n = _check_pack_inputs(scalars, words, word_off, meta, order, g_real, g_pad)
+    tracing.count("plain.lane_pack")
+    i64 = torch.int64
+    npad = nb * LANES
+    sg_off = scalars[:, 3:].reshape(-1).to(i64)
+    w8 = torch.diff(sg_off, append=torch.tensor([g_real], dtype=i64, device=dev))
+    src = order.to(i64)
+    real = src < n
+    row = torch.where(real, src, 0)
+    offs = torch.cat([word_off.to(i64), torch.zeros(1, dtype=i64, device=dev)])
+    start = torch.where(real, offs[row], 0)
+    cnt = torch.where(real, offs[row + 1] - start, 0)
+    lane = torch.arange(npad, device=dev)
+    sg = lane // SUBG
+    cap = w8[sg] * 8
+    base = sg_off[sg] * 8 * SUBG + lane % SUBG
+    src_words = torch.cat([words.to(i64) & 0xFFFFFFFF, torch.zeros(1, dtype=i64, device=dev)])
+    buf = torch.zeros(g_pad * 8 * SUBG, dtype=torch.int32, device=dev)
+    for k in range(int(cap.max()) if npad else 0):
+        line = k < cap
+        v = src_words[torch.where(k < cnt, start + k, words.shape[0])]
+        v = (((v & 0xFF) << 24) | (((v >> 8) & 0xFF) << 16)
+             | (((v >> 16) & 0xFF) << 8) | ((v >> 24) & 0xFF))
+        buf[(base + k * SUBG)[line]] = _signed32(v[line])
+    m = torch.cat([meta, torch.zeros((1, META_ROWS), dtype=meta.dtype, device=dev)])
+    metab = m[torch.where(real, src, n)].view(nb, LANES, META_ROWS).transpose(1, 2)
+    return buf.view(g_pad, 8, SUBG), metab.contiguous()
 
 
 def _check_inputs(scalars, buf, meta):

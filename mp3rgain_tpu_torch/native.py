@@ -68,35 +68,47 @@ def _sources() -> list[str]:
     return [os.path.join(SRC_DIR, s) for s in SOURCES]
 
 
-def is_stale() -> bool:
-    if not os.path.exists(SO_PATH):
+def _stale(so_path: str, deps: list[str]) -> bool:
+    if not os.path.exists(so_path):
         return True
-    built = os.path.getmtime(SO_PATH)
-    deps = _sources() + [os.path.join(SRC_DIR, h) for h in HEADERS]
+    built = os.path.getmtime(so_path)
     return any(os.path.getmtime(p) > built for p in deps)
+
+
+def _deps() -> list[str]:
+    return _sources() + [os.path.join(SRC_DIR, h) for h in HEADERS]
+
+
+def compile_library(so_path: str, sources: list[str], deps: list[str],
+                    force: bool = False) -> str:
+    """Compile `sources` with g++ into so_path if it is older than one of
+    `deps` (or missing, or forced); returns its path. Atomic under a file
+    lock beside it. Raises RuntimeError with the compiler's output on
+    failure."""
+    os.makedirs(os.path.dirname(so_path), exist_ok=True)
+    with open(so_path + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not force and not _stale(so_path, deps):
+            return so_path
+        tmp = f"{so_path}.{os.getpid()}.tmp"
+        # The library builds on the host that runs it, so tuning for the
+        # local ISA is safe; fall back to the portable baseline if the
+        # toolchain rejects the flag.
+        for arch in (["-march=native"], []):
+            cmd = ["g++", *CXXFLAGS, *arch, "-o", tmp, *sources]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode == 0:
+                os.replace(tmp, so_path)
+                return so_path
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f"native build failed:\n$ {' '.join(cmd)}\n{proc.stderr}")
 
 
 def build(force: bool = False) -> str:
     """Compile the host core into SO_PATH if stale (or forced); returns its
     path. Raises RuntimeError with the compiler's output on failure."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(SO_PATH + ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not force and not is_stale():
-            return SO_PATH
-        tmp = f"{SO_PATH}.{os.getpid()}.tmp"
-        # The library builds on the host that runs it, so tuning for the
-        # local ISA is safe; fall back to the portable baseline if the
-        # toolchain rejects the flag.
-        for arch in (["-march=native"], []):
-            cmd = ["g++", *CXXFLAGS, *arch, "-o", tmp, *_sources()]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode == 0:
-                os.replace(tmp, SO_PATH)
-                return SO_PATH
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(f"native build failed:\n$ {' '.join(cmd)}\n{proc.stderr}")
+    return compile_library(SO_PATH, _sources(), _deps(), force)
 
 
 def _tune_malloc() -> None:
@@ -174,9 +186,12 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 class _Library:
-    """The host core, built and loaded on first attribute access."""
+    """A host library, built (`build`) and loaded, its entry points
+    declared (`declare`), on first attribute access."""
 
-    def __init__(self) -> None:
+    def __init__(self, build, declare) -> None:
+        self._build = build
+        self._declare = declare
         self._lock = threading.Lock()
         self._lib: ctypes.CDLL | None = None
 
@@ -184,8 +199,8 @@ class _Library:
         with self._lock:
             if self._lib is None:
                 _tune_malloc()
-                lib = ctypes.CDLL(build())
-                _declare(lib)
+                lib = ctypes.CDLL(self._build())
+                self._declare(lib)
                 self._lib = lib
             return self._lib
 
@@ -193,7 +208,7 @@ class _Library:
         return getattr(self.load(), name)
 
 
-_lib = _Library()
+_lib = _Library(build, _declare)
 
 
 def _inbuf(data) -> _u8p:

@@ -6,9 +6,11 @@ device, independent launches instead of shard_map), and analyze_library
 deals a library's batches across the Runners it is given.
 
 The raw-bits ("light") route, the main path: host light walk → host lane
-sort and pack (prepare_batch_arrays_light) → host-to-device upload
-(Runner: pinned staging and a copy stream on CUDA) → the row map (dest_rows) → Huffman decode (K1, CUDA) straight
-into K2's channel-major rows → scalefactor and info gathers →
+plan and each row's used words in walk order
+(prepare_batch_arrays_light_compact) → host-to-device upload (Runner:
+pinned staging and a copy stream on CUDA) → the lane pack (K0, CUDA) into
+the decode's lane-major input → the row map (dest_rows) → Huffman decode
+(K1, CUDA) straight into K2's channel-major rows → scalefactor and info gathers →
 requantize + stereo (K2, CUDA) → hybrid synthesis (K4, CUDA) →
 overlap-add and polyphase synthesis (K5, CUDA) → equal-loudness IIR → RMS-window histogram → 95th-percentile index.
 
@@ -25,7 +27,9 @@ the host-requant f16 oracle) ride the same Runner: prepare_aac_q /
 prepare_aac, then launch and collect as for MP3.
 
 The host packers are copies of the JAX package's, held bit-identical by
-the tests. The per-track histograms, indices and peaks come back to the
+the tests; the copied lane pack (prepare_batch_arrays_light, then
+analysis_core_light on its buf and meta) is the oracle the lane plan and
+K0 are held to. The per-track histograms, indices and peaks come back to the
 host. Tracks in one batch share a sample rate and channel count; their
 constant tables live as buffers of one LightTail module.
 """
@@ -33,6 +37,7 @@ constant tables live as buffers of one LightTail module.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import math
 import os
 import threading
@@ -74,6 +79,19 @@ def _quantize_up(value: int, unit: int, base: int, ratio: float) -> int:
     return max(v, -(-value // unit) * unit)
 
 
+def _light_shapes(unpacked: list, n_channels: int, pad_batch_to: int,
+                  force_shapes: tuple | None):
+    """(bpad, g_max, force_nb, force_g_pad, force_s, force_h) of a light
+    batch: the padded batch size and row-map width, and the pinned
+    shapes (None where free)."""
+    if force_shapes is not None:
+        return tuple(force_shapes)
+    g_max = _quantize_up(max(u.n for u in unpacked), 2 * n_channels, base=512, ratio=1.3)
+    bpad = next((b for b in _B_LADDER if b >= len(unpacked)), len(unpacked))
+    bpad = -(-bpad // pad_batch_to) * pad_batch_to
+    return bpad, g_max, None, None, None, None
+
+
 def prepare_batch_arrays_light(
     unpacked: list, n_channels: int,
     pad_batch_to: int = 1,
@@ -93,24 +111,41 @@ def prepare_batch_arrays_light(
     nb, g_pad, s_pad, h_pad) pins all shapes. The big arrays (buf, meta,
     scf, info) come from the shared buffer pool: hand them back once the
     device copy has completed."""
-    import ctypes
-
-    bsz = len(unpacked)
-    g_max = max(u.n for u in unpacked)
-    unit = 2 * n_channels
-    g_max = _quantize_up(g_max, unit, base=512, ratio=1.3)
-    bpad = next((b for b in _B_LADDER if b >= bsz), bsz)
-    bpad = -(-bpad // pad_batch_to) * pad_batch_to
-    force_nb = force_g = force_s = force_h = None
-    if force_shapes is not None:
-        bpad, g_max, force_nb, force_g, force_s, force_h = force_shapes
-
+    bpad, g_max, force_nb, force_g, force_s, force_h = _light_shapes(
+        unpacked, n_channels, pad_batch_to, force_shapes)
     prep = ek.prepare_batch(
         [u.md for u in unpacked], [u.meta for u in unpacked],
         quantize_nb=True, force_nb=force_nb, force_g_pad=force_g,
     )
-    npad = prep.nb * ek.LANES
+    rows = _light_rows(unpacked, n_channels, prep.nb * ek.LANES, bpad, force_s, force_h)
+    return prep, rows, g_max
 
+
+def prepare_batch_arrays_light_compact(
+    unpacked: list, n_channels: int,
+    pad_batch_to: int = 1,
+    force_shapes: tuple | None = None,
+):
+    """prepare_batch_arrays_light with ek.prepare_batch_compact's plan in
+    place of ek.prepare_batch's packed blocks: (prep: CompactEntropy, the
+    same rows, g_max), for analysis_core_light_compact. The big arrays
+    (prep.pooled, scf, info) come from the shared buffer pool: hand them
+    back once the device copy has completed."""
+    bpad, g_max, force_nb, force_g, force_s, force_h = _light_shapes(
+        unpacked, n_channels, pad_batch_to, force_shapes)
+    prep = ek.prepare_batch_compact(
+        [u.md for u in unpacked], [u.meta for u in unpacked],
+        quantize_nb=True, force_nb=force_nb, force_g_pad=force_g,
+    )
+    rows = _light_rows(unpacked, n_channels, prep.nb * ek.LANES, bpad, force_s, force_h)
+    return prep, rows, g_max
+
+
+def _light_rows(unpacked: list, n_channels: int, npad: int, bpad: int,
+                force_s: int | None, force_h: int | None):
+    """The light batch's rows beside its entropy input: (counts, scf, srow,
+    sdata, hrow, hdata, info, valid_samples), prepare_batch_arrays_light's."""
+    bsz = len(unpacked)
     counts = np.zeros(bpad, np.int32)
     counts[:bsz] = [u.n for u in unpacked]
     info = bufpool.take_zeroed((npad, fe.IP_N), np.uint16)
@@ -192,8 +227,7 @@ def prepare_batch_arrays_light(
         [u.n // n_channels * 576 for u in unpacked] + [0] * (bpad - bsz),
         dtype=np.int32,
     )
-    return prep, (counts, scf, srow, sdata, hrow, hdata, info,
-                  valid_samples), g_max
+    return counts, scf, srow, sdata, hrow, hdata, info, valid_samples
 
 
 def prepare_batch_arrays(unpacked: list, n_channels: int,
@@ -574,6 +608,24 @@ def analysis_core_light(tail: LightTail, scalars, buf, metab, inv, counts,
     )
 
 
+def analysis_core_light_compact(tail: LightTail, scalars, words, word_off, meta,
+                                order, inv, counts, scf, srow, sdata, hrow, hdata,
+                                info, valid_samples, *, nb: int, g_max: int,
+                                g_real: int, g_pad: int, fused: bool = True,
+                                on_stage=None, segment=None):
+    """analysis_core_light on prepare_batch_arrays_light_compact's arrays:
+    the lane pack (K0) builds the entropy decode's buf and meta on the
+    device, then analysis_core_light runs on them (on_stage: also called
+    after "lane pack")."""
+    buf, metab = ek.lane_pack(scalars, words, word_off, meta, order,
+                              g_real=g_real, g_pad=g_pad)
+    _stage(on_stage, "lane pack")
+    return analysis_core_light(
+        tail, scalars, buf, metab, inv, counts, scf, srow, sdata, hrow, hdata,
+        info, valid_samples, nb=nb, g_max=g_max, fused=fused, on_stage=on_stage,
+        segment=segment)
+
+
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """Blocking copy of a host array to `device`; never aliases `arr`
     (pooled host buffers are reused as soon as this returns)."""
@@ -735,6 +787,10 @@ def combine_segments(hists, peaks):
     return hist.astype(np.int32), hi.index_to_loudness(idx), np.max(np.asarray(peaks, np.float32))
 
 
+# The index of the per-track counts in a light batch's Prepared.arrays.
+LIGHT_COUNTS = 6
+
+
 @dataclass
 class Prepared:
     """A batch's host half (Runner.prepare_light / prepare_heavy /
@@ -757,7 +813,7 @@ def _batch_name(p: Prepared) -> str:
     """A batch as the device.peak_bytes gauge names it."""
     seg = p.shapes.get("segment")
     return (f"{p.route} {p.sample_rate} Hz {p.n_channels} ch, batch of {p.bsz}"
-            + (f", {len(p.arrays[4]) * p.shapes['g_max']} padded rows"
+            + (f", {len(p.arrays[LIGHT_COUNTS]) * p.shapes['g_max']} padded rows"
                if p.route == "light" else "")
             + (f", segment {seg.index} ({seg.n // seg.n_channels} granule-times)"
                if seg is not None else ""))
@@ -943,21 +999,25 @@ class Runner:
 
     def prepare_light(self, unpacked: list, sample_rate: int,
                       n_channels: int) -> Prepared:
-        """Host prep of a batch of same-format light-unpacked tracks."""
+        """Host prep of a batch of same-format light-unpacked tracks: the
+        lane plan and the rows copied in walk order, which the device
+        packs (analysis_core_light_compact)."""
         segments = [u for u in unpacked if isinstance(u, Segment)]
         if segments and len(unpacked) != 1:
             raise ValueError("a segment is a batch of its own")
         with tracing.span("prep"):
             t0 = time.perf_counter()
-            prep, rest, g_max = prepare_batch_arrays_light(unpacked, n_channels, 1)
+            prep, rest, g_max = prepare_batch_arrays_light_compact(unpacked, n_channels, 1)
             _count_rows(unpacked, len(rest[0]) * g_max)
-            shapes = {"nb": prep.nb, "g_max": g_max}
+            shapes = {"nb": prep.nb, "g_max": g_max, "g_real": prep.g_real,
+                      "g_pad": prep.g_pad}
             if segments:
                 rest[7][0] = segments[0].samples  # the halo's samples are not its own
                 shapes["segment"] = segments[0]
             return Prepared("light", sample_rate, n_channels, len(unpacked),
-                            (prep.scalars, prep.buf, prep.meta, prep.inv) + tuple(rest),
-                            (prep.buf, prep.meta, rest[1], rest[6]),
+                            (prep.scalars, prep.words, prep.word_off, prep.meta,
+                             prep.order, prep.inv) + tuple(rest),
+                            prep.pooled + (rest[1], rest[6]),
                             shapes, time.perf_counter() - t0)
 
     def prepare_heavy(self, unpacked: list, sample_rate: int,
@@ -1035,7 +1095,8 @@ class Runner:
 
                 core = aac.analysis_core_q if prepared.route == "aac_q" else aac.analysis_core
             else:
-                core = analysis_core_light if prepared.route == "light" else analysis_core
+                core = (analysis_core_light_compact if prepared.route == "light"
+                        else analysis_core)
             kwargs = prepared.shapes
             stages = None
             if up is not None and prepared.route != "heavy":

@@ -4,10 +4,13 @@
 
 Times, on the committed 60 s bench clip (no device work): the light walk
 of 64 tracks on one thread and of 256 tracks on walk pools of 4, 6 and 8
-threads; the 64-track batch prep (runner.prepare_batch_arrays_light) on
-one thread and 2, 3 and 4 at once; a 256-track walk beside 4 preps on 2
-threads; and how much of the GIL the prep leaves free (the rate of a
-pure-Python loop in another thread during prep, over its rate idle).
+threads; the 64-track batch prep of the main path
+(runner.prepare_batch_arrays_light_compact: the lane plan and the rows in
+walk order) beside the copied one (runner.prepare_batch_arrays_light, with
+the host transpose) on one thread, and the main path's on 2, 3 and 4 at
+once; a 256-track walk beside 4 preps on 2 threads; and how much of the
+GIL the prep leaves free (the rate of a pure-Python loop in another thread
+during prep, over its rate idle).
 analyze_library's PREP_THREADS and walk-pool size rest on these numbers.
 """
 
@@ -69,6 +72,13 @@ def main() -> None:
 
     def prep(_=None) -> float:
         t = time.perf_counter()
+        p, rest, _g = pr.prepare_batch_arrays_light_compact(ups, 2)
+        dt = time.perf_counter() - t
+        bufpool.give(*p.pooled, rest[1], rest[6])
+        return dt
+
+    def prep_copied() -> float:
+        t = time.perf_counter()
         p, rest, _g = pr.prepare_batch_arrays_light(ups, 2)
         dt = time.perf_counter() - t
         bufpool.give(p.buf, p.meta, rest[1], rest[6])
@@ -77,7 +87,13 @@ def main() -> None:
     def fmt(ts):
         return ", ".join(f"{x:.4f}" for x in ts)
 
-    print(f"prep of a {BATCH}-track batch on 1 thread: {fmt([prep() for _ in range(4)])} s",
+    # In turns, so that both see the same state of the host.
+    times = {"compact": [], "copied": []}
+    for _ in range(4):
+        times["compact"].append(prep())
+        times["copied"].append(prep_copied())
+    print(f"prep of a {BATCH}-track batch on 1 thread: main path (lane plan) "
+          f"{fmt(times['compact'])} s; copied (host transpose) {fmt(times['copied'])} s",
           flush=True)
     for n in (2, 3, 4):
         with ThreadPoolExecutor(n) as ex:

@@ -134,6 +134,76 @@ def test_k1_bad_lanes_leave_zero_rows(dev):
     assert not spec[bad].any() and not c1end[bad].any() and spec[~bad].any()
 
 
+def _random_rows(seed: int, n: int):
+    """n rows of random md bytes and meta with every field in its legal
+    range (a random p0 + part2_3 window, big-value pairs, region bounds,
+    table groups and linbits)."""
+    rng = np.random.default_rng(seed)
+    md = rng.integers(0, 256, (n, fe.MD_STRIDE), dtype=np.uint8)
+    meta = np.zeros((n, fe.LIGHT_META_N), np.int32)
+    for field, hi in ((fe.LM_P0, 8), (fe.LM_P23, 4096), (fe.LM_BVP, 289), (fe.LM_R0P, 512),
+                      (fe.LM_R1P, 512), (fe.LM_G0, 16), (fe.LM_G1, 16), (fe.LM_G2, 16),
+                      (fe.LM_L0, 14), (fe.LM_L1, 14), (fe.LM_L2, 14), (fe.LM_GCNT, 2)):
+        meta[:, field] = rng.integers(0, hi, n)
+    return md, meta
+
+
+def _k0_equal(c: ek.CompactEntropy, dev):
+    """lane_pack on the card equals its plain version exactly (the whole
+    buffer, its unowned tail zero), twice; returns (buf, meta)."""
+    args = _on(dev, (c.scalars, c.words, c.word_off, c.meta, c.order))
+    # Stale bytes in the allocator's cache must not show through.
+    torch.full((c.g_pad * 8 * ek.SUBG,), 7, dtype=torch.int32, device=dev)
+    with tracing.recording():
+        got = ek.lane_pack(*args, g_real=c.g_real, g_pad=c.g_pad)
+        again = ek.lane_pack(*args, g_real=c.g_real, g_pad=c.g_pad)
+        torch.cuda.synchronize()
+        assert _counts("lane_pack") == (2, 0)
+    want = ek.lane_pack_reference(*[a.cpu() for a in args], g_real=c.g_real, g_pad=c.g_pad)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g.cpu(), w) and torch.equal(g, a)
+    return got
+
+
+@pytest.mark.parametrize("name", ["random", "random_rows_cap"] + sorted(STREAMS))
+def test_k0_lane_pack_matches_plain_and_host_pack(name, dev):
+    """K0 against its plain version and against prepare_batch's host pack,
+    on random rows (one batch and one at the rows cap) and on each
+    stream's decoded rows."""
+    if name.startswith("random"):
+        md, meta = _random_rows(20, pr.ROWS_CAP if name.endswith("cap") else 5000)
+    else:
+        light = fe.unpack_data_light(STREAMS[name]())
+        md, meta = light.md, light.meta
+    c = ek.prepare_batch_compact(md, meta, quantize_nb=True)
+    buf, metab = _k0_equal(c, dev)
+    host = ek.prepare_batch(md, meta, quantize_nb=True)
+    assert torch.equal(buf[: c.g_real].cpu(), torch.from_numpy(host.buf[: c.g_real]))
+    assert torch.equal(metab.cpu(), torch.from_numpy(host.meta.view(np.int16)))
+
+
+def test_light_batch_on_compact_arrays_equals_the_host_pack_on_card(dev):
+    """The light path's new prep (the lane plan, K0) and the old one
+    (prepare_batch_arrays_light → analysis_core_light) give the same
+    histograms, indices and peaks on the card, bit for bit."""
+    ups = [fe.unpack_data_light_packed(STREAMS[n]())
+           for n in ("transient", "truncated", "transient")]
+    tail = pr.LightTail(ups[0].sample_rate, ups[0].n_channels).to(dev)
+    prep, rest, g_max = pr.prepare_batch_arrays_light(ups, 2)
+    old = pr.analysis_core_light(
+        tail, *_on(dev, (prep.scalars, prep.buf, prep.meta, prep.inv) + tuple(rest)),
+        nb=prep.nb, g_max=g_max)
+    c, rest, g_max = pr.prepare_batch_arrays_light_compact(ups, 2)
+    with tracing.recording():
+        new = pr.analysis_core_light_compact(
+            tail, *_on(dev, (c.scalars, c.words, c.word_off, c.meta, c.order, c.inv) + tuple(rest)),
+            nb=c.nb, g_max=g_max, g_real=c.g_real, g_pad=c.g_pad)
+        torch.cuda.synchronize()
+        assert _counts("lane_pack") == _counts("entropy_decode_rows") == (1, 0)
+    for a, b in zip(old, new):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("name", ["mono_22k", "transient", "craft_intensity",
                                   "craft_lsf_intensity", "craft_mixed_block"])
 def test_k2_kernel_matches_plain(name, dev):
@@ -288,6 +358,23 @@ def test_light_scan_launches_k4_and_k5_once_per_batch(dev, tmp_path):
         assert t.ok and int(t.histogram.sum()) == int(c_hist.sum())
         assert abs(t.result.loudness_db - c_louds[0]) <= 0.02 + 1e-9
         np.testing.assert_allclose(t.result.peak, c_peaks[0], rtol=2e-4, atol=1e-6)
+
+
+def test_a_scan_packs_lanes_on_the_card_once_per_decode(dev, tmp_path):
+    """scan_files over 3 light batches: K0 launches once for each K1
+    launch, and its plain version never runs."""
+    paths = []
+    for i in range(6):
+        paths.append(str(tmp_path / f"t{i}.mp3"))
+        with open(paths[-1], "wb") as f:
+            f.write(_clip(smoke.TRANSIENT_TRACK if i % 2 else smoke.MONO_TRACK))
+    with tracing.recording():
+        res = scan.scan_files(paths, runner=pr.Runner(dev))
+        launches, plain = _counts("lane_pack")
+        assert launches == tracing.counter("launches.entropy_decode_rows") >= 2
+        assert plain == 0
+    assert len(res.results) == 6
+    assert not any(isinstance(r, Exception) for r in res.results.values())
 
 
 def test_light_path_on_card_matches_cpu(dev):

@@ -75,7 +75,8 @@ def segmented(long_tracks):
 
     def keep(ups, sr, nch):
         p = real(ups, sr, nch)
-        batches.append((len(p.arrays[4]) * p.shapes["g_max"], p.shapes.get("segment")))
+        rows = len(p.arrays[pr.LIGHT_COUNTS]) * p.shapes["g_max"]
+        batches.append((rows, p.shapes.get("segment")))
         return p
 
     runner.prepare_light = keep
@@ -326,6 +327,6 @@ def test_the_peak_gauge_names_the_batch_that_raised_it(long_tracks):
         u = fe.unpack_data_light_packed(f.read())
     seg = pr.split_track(u, pr.segment_plan(u.n, u.sample_rate, 1, CAP))[1]
     prepared = pr.Runner("cpu").prepare_light([seg], u.sample_rate, 1)
-    rows = len(prepared.arrays[4]) * prepared.shapes["g_max"]
+    rows = len(prepared.arrays[pr.LIGHT_COUNTS]) * prepared.shapes["g_max"]
     assert pr._batch_name(prepared) == (f"light 22050 Hz 1 ch, batch of 1, {rows} padded "
                                         f"rows, segment 1 (553 granule-times)")

@@ -26,8 +26,8 @@ from mp3rgain_tpu_torch.testing import make_smoke_data as smoke
 
 torch.set_num_threads(2)
 
-STAGES = ["row map", "K1", "gathers", "K2", "hybrid GEMMs", "overlap-add + polyphase",
-          "peak", "IIR", "histogram + index"]
+STAGES = ["lane pack", "row map", "K1", "gathers", "K2", "hybrid GEMMs",
+          "overlap-add + polyphase", "peak", "IIR", "histogram + index"]
 
 
 @pytest.fixture(scope="module")
@@ -108,12 +108,14 @@ def test_scan_span_tree_and_counters(clips, tmp_path, monkeypatch):
     assert not any(s["device"] for s in snap["spans"] if s["name"] not in STAGES)
     # Counters: the rows the prepared batches hold and the rows they pad to.
     assert len(prepared) == 2
-    real = sum(int(p.arrays[4].sum()) for p in prepared)  # the per-track counts
-    padded = sum(len(p.arrays[4]) * p.shapes["g_max"] for p in prepared)
+    counts = [p.arrays[pr.LIGHT_COUNTS] for p in prepared]  # the per-track counts
+    real = sum(int(k.sum()) for k in counts)
+    padded = sum(len(k) * p.shapes["g_max"] for k, p in zip(counts, prepared))
     c = snap["counters"]
     assert (c["rows.real"], c["rows.padded"]) == (real, padded) and real < padded
     assert c["plain.entropy_decode_rows"] == c["plain.requant_stereo"] == 2
-    assert "launches.entropy_decode_rows" not in c
+    assert c["plain.lane_pack"] == 2
+    assert "launches.entropy_decode_rows" not in c and "launches.lane_pack" not in c
     t = snap["totals"]
     assert t["walk"]["count"] == len(clips) and t["prep"]["count"] == 2
     assert t["scan"]["self_s"] < t["scan"]["wall_s"]
@@ -138,9 +140,10 @@ def test_album_span_tree(clips, monkeypatch):
     host = [s for s in snap["spans"] if not s["device"]]
     assert {s["thread"] for s in host} == {"MainThread"}
     assert sorted(s["name"] for s in snap["spans"] if s["device"]) == sorted(STAGES * 2)
-    assert snap["counters"]["rows.real"] == sum(int(p.arrays[4].sum()) for p in prepared)
-    assert snap["counters"]["rows.padded"] == sum(len(p.arrays[4]) * p.shapes["g_max"]
-                                                  for p in prepared)
+    counts = [p.arrays[pr.LIGHT_COUNTS] for p in prepared]
+    assert snap["counters"]["rows.real"] == sum(int(k.sum()) for k in counts)
+    assert snap["counters"]["rows.padded"] == sum(len(k) * p.shapes["g_max"]
+                                                  for k, p in zip(counts, prepared))
 
 
 def test_nothing_is_recorded_when_off(clips):
