@@ -1,15 +1,22 @@
 """mp3rgain_tpu_torch — the ReplayGain analysis path on PyTorch and CUDA.
 
 A port of mp3rgain_tpu's MP3 analysis paths to PyTorch: the raw-bits
-route (host light walk → device Huffman decode → requantize + stereo →
-hybrid and polyphase GEMMs → equal-loudness IIR → loudness histogram) and
-the host-decoded route (host full decode → requantize + stereo →
-class-core GEMMs → polyphase GEMMs → the same IIR and histogram). The JAX
-package's Pallas kernels are rewritten by hand for NVIDIA Hopper in
-CUDA C++: the Huffman decode, which writes each spectrum straight into
-the row the next stage reads (csrc/entropy_decode.cu), the fused
-requantize + stereo pass (csrc/requant_stereo.cu) and the split-bf16
-class-core GEMM (csrc/class_core_gemm.cu). The
+route, the main path (host light walk and lane plan → device lane pack →
+Huffman decode → requantize + stereo → hybrid synthesis → overlap-add
+and polyphase synthesis → equal-loudness IIR → loudness histogram), and
+the host-decoded route, a reference the tests compare against (host full
+decode → requantize + stereo → class-core GEMMs → polyphase GEMMs → the
+same IIR and histogram); aac.py adds the AAC/M4A path. Six kernels are
+written by hand for NVIDIA Hopper in CUDA C++: K0 the lane pack, which
+builds the decode's lane-major input from the rows the host copied in
+walk order (csrc/lane_pack.cu); K1 the Huffman decode, which writes each
+spectrum straight into the row the next stage reads
+(csrc/entropy_decode.cu); K2 the fused requantize + stereo pass
+(csrc/requant_stereo.cu); K3 the split-bf16 class-core GEMM of the
+host-decoded route (csrc/class_core_gemm.cu); K4 the hybrid synthesis,
+alias butterflies and IMDCT by subband (csrc/hybrid_synthesis.cu); K5
+the overlap-add and polyphase synthesis (csrc/overlap_polyphase.cu). No
+GEMM is left in the raw-bits route's synthesis. The
 host code it needs from mp3rgain_tpu (the native C++ front-end in
 _native/, built with g++ on first use by native.py; the MP3 front-end,
 the table builders, the filter coefficients, the buffer pool, the

@@ -72,7 +72,8 @@ def _heavy(runner, args: tuple):
     from . import runner as pr
 
     return runner.collect(runner.launch(
-        pr.Prepared("heavy", 44100, 2, len(args[-1]), args, (), {}, 0.0)))
+        pr.Prepared("heavy", pr.analysis_core, pr.Runner.tail, 44100, 2, len(args[-1]),
+                    args, (), {}, 0.0)))
 
 
 def _devices(n: int, device) -> list[str]:

@@ -43,6 +43,7 @@ import os
 import threading
 import time
 from collections import deque
+from collections.abc import Callable
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
@@ -97,7 +98,9 @@ def prepare_batch_arrays_light(
     pad_batch_to: int = 1,
     force_shapes: tuple | None = None,
 ):
-    """Pack light-unpacked tracks for analysis_core_light.
+    """Pack light-unpacked tracks for analysis_core_light: the copied
+    host lane pack, a reference the tests (and the lane plan and K0) are
+    held to, not the main path (prepare_batch_arrays_light_compact).
 
     Returns (prep: PreparedEntropy,
     (counts, scf, srow, sdata, hrow, hdata, info, valid_samples),
@@ -121,23 +124,17 @@ def prepare_batch_arrays_light(
     return prep, rows, g_max
 
 
-def prepare_batch_arrays_light_compact(
-    unpacked: list, n_channels: int,
-    pad_batch_to: int = 1,
-    force_shapes: tuple | None = None,
-):
+def prepare_batch_arrays_light_compact(unpacked: list, n_channels: int):
     """prepare_batch_arrays_light with ek.prepare_batch_compact's plan in
     place of ek.prepare_batch's packed blocks: (prep: CompactEntropy, the
-    same rows, g_max), for analysis_core_light_compact. The big arrays
-    (prep.pooled, scf, info) come from the shared buffer pool: hand them
-    back once the device copy has completed."""
-    bpad, g_max, force_nb, force_g, force_s, force_h = _light_shapes(
-        unpacked, n_channels, pad_batch_to, force_shapes)
+    same rows, g_max), for analysis_core_light_compact. The shapes are
+    free (the ladders'). The big arrays (prep.pooled, scf, info) come from
+    the shared buffer pool: hand them back once the device copy has
+    completed."""
+    bpad, g_max, *_ = _light_shapes(unpacked, n_channels, 1, None)
     prep = ek.prepare_batch_compact(
-        [u.md for u in unpacked], [u.meta for u in unpacked],
-        quantize_nb=True, force_nb=force_nb, force_g_pad=force_g,
-    )
-    rows = _light_rows(unpacked, n_channels, prep.nb * ek.LANES, bpad, force_s, force_h)
+        [u.md for u in unpacked], [u.meta for u in unpacked], quantize_nb=True)
+    rows = _light_rows(unpacked, n_channels, prep.nb * ek.LANES, bpad, None, None)
     return prep, rows, g_max
 
 
@@ -410,9 +407,10 @@ def analysis_tail(tail: LightTail, spectrum, scf, info, valid_samples):
 
 
 def analysis_core(tail: LightTail, spec_i8, esc_idx, esc_val, scf, info,
-                  valid_samples):
+                  valid_samples, *, on_stage=None):
     """Host-decoded batched pipeline: prepare_batch_arrays' compact
-    manifest → spectrum unpack → analysis_tail."""
+    manifest → spectrum unpack → analysis_tail. It marks no stage:
+    on_stage is accepted, as every core accepts it, and not called."""
     spectrum = _unpack_spectrum(spec_i8, esc_idx, esc_val)
     return analysis_tail(tail, spectrum, scf, info, valid_samples)
 
@@ -498,7 +496,9 @@ def _light_tail_unfused(tail: LightTail, spec_rows, big_end, c1end, counts,
                         nb: int, g_max: int):
     """K1's track-major rows as the host-decoded route's (B, G, ...) form,
     BIG_END/COUNT1_END taken from K1's outputs, the scalefactors and info
-    gathered through the row map, then analysis_tail."""
+    gathered through the row map, then analysis_tail: light_tail(fused=False),
+    a reference the tests compare the fused path against, not the main
+    path."""
     npad = nb * ek.LANES
     dev = spec_rows.device
     rowmap = _rowmap_from_counts(counts, g_max, npad)
@@ -523,7 +523,8 @@ def light_tail(tail: LightTail, spec_rows, big_end, c1end, counts, scf,
     hybrid synthesis (alias butterflies and IMDCT), overlap-add and
     polyphase synthesis, IIR, histogram.
     fused=False: the host-decoded route's analysis_tail on the same
-    decode, which equals that route exactly. on_stage, if given, is
+    decode, which equals that route exactly; a reference the tests compare
+    against, not the main path. on_stage, if given, is
     called with a stage's name as each stage of the fused path has been
     enqueued (for per-stage device timing).
 
@@ -710,13 +711,18 @@ class CarryMissing(RuntimeError):
 
 
 class TrackCarry:
-    """What the segments of one track hand on: each segment's filter state
-    at its end (a (C, state_width) tensor on the device), by segment index.
-    The segments run in order on one Runner, so a state is read on the
-    stream that wrote it."""
+    """What the segments of one track hand on and answer: each segment's
+    filter state at its end (a (C, state_width) tensor on the device), by
+    segment index; the histograms and peaks of the segments collected so
+    far, how many are still out and the first failure. The segments run in
+    order on one Runner, so a state is read on the stream that wrote it."""
 
-    def __init__(self):
+    def __init__(self, n_segments: int):
         self.states: dict[int, torch.Tensor | None] = {}
+        self.hists: list[np.ndarray] = []
+        self.peaks: list[float] = []
+        self.left = n_segments
+        self.error: BaseException | None = None
 
     def state_before(self, index: int):
         if index == 0:
@@ -725,6 +731,25 @@ class TrackCarry:
             return self.states[index - 1]
         except KeyError:
             raise CarryMissing(f"segment {index} has no state from segment {index - 1}") from None
+
+    def take(self, collected):
+        """Take in one segment's collected (hist, loudness, peak) host
+        arrays, or the exception it ended in. None while segments are still
+        out; then the track's (hist (1, 12000) int32, loudness (1,) dB, peak
+        (1,)), a batch of one as Runner.collect gives it, from
+        combine_segments, or the first failure."""
+        self.left -= 1
+        if isinstance(collected, BaseException):
+            self.error = self.error or collected
+        else:
+            self.hists.append(collected[0][0])
+            self.peaks.append(collected[2][0])
+        if self.left:
+            return None
+        if self.error is not None:
+            return self.error
+        hist, loud, peak = combine_segments(self.hists, self.peaks)
+        return hist[None], np.array([loud]), np.array([peak], np.float32)
 
 
 @dataclass(eq=False)
@@ -759,7 +784,7 @@ def split_track(u, plan: list[tuple[int, int]]) -> list[Segment]:
     """The segments of a packed light-unpacked track (fe.UnpackedMp3LightPacked)
     for segment_plan's ranges, each starting HALO granule-times early
     (fewer at the track's start); they share one TrackCarry."""
-    carry = TrackCarry()
+    carry = TrackCarry(len(plan))
     nch = u.n_channels
     out = []
     for k, (g0, g1) in enumerate(plan):
@@ -795,11 +820,16 @@ LIGHT_COUNTS = 6
 class Prepared:
     """A batch's host half (Runner.prepare_light / prepare_heavy /
     prepare_aac_q / prepare_aac): its route ("light", "heavy", "aac_q" or
-    "aac"), the arrays to upload, the pooled host buffers to hand back to
-    the pool once those are staged and the keyword arguments of the
-    device pipeline."""
+    "aac", a label for timings and the peak gauge), the device pipeline
+    to run (core, called as core(tables, *uploaded arrays, **shapes,
+    on_stage=...)), the Runner method that gives the constant tables of
+    the Runner that launches it (tail_of(runner, sample_rate,
+    n_channels)), the arrays to upload, the pooled host buffers to hand
+    back to the pool once those are staged and core's keyword arguments."""
 
     route: str
+    core: Callable
+    tail_of: Callable
     sample_rate: int
     n_channels: int
     bsz: int
@@ -959,10 +989,9 @@ class Runner:
         return out, (start, end)
 
     def _launch(self, run, prepared: Prepared, h2d_s: float, copy,
-                album: torch.Tensor | None, stages: list | None) -> _Batch:
-        """Enqueue run() → (hist, loud_idx, peak) after the upload, the
-        album sum (album += the batch's histograms, int64) and the
-        readback. stages, while tracing records, gets the batch's start
+                stages: list | None) -> _Batch:
+        """Enqueue run() → (hist, loud_idx, peak) after the upload, then
+        the readback. stages, while tracing records, gets the batch's start
         mark ahead of run()'s stage marks."""
         bsz, route, prep_s = prepared.bsz, prepared.route, prepared.prep_s
         if copy is None:
@@ -971,8 +1000,6 @@ class Runner:
                 stages.append((None, time.time_ns()))
             with tracing.span("enqueue"):
                 hist, loud_idx, peak = run()
-            if album is not None:
-                album += hist[:bsz].sum(dim=0, dtype=torch.int64)
             return _Batch(bsz, route, prep_s, h2d_s, (time.perf_counter() - t) * 1e3,
                           result=(hist, loud_idx, peak), stages=stages)
         start = torch.cuda.Event(enable_timing=True)
@@ -991,8 +1018,6 @@ class Runner:
             s_host = torch.empty(stats.shape, dtype=stats.dtype, pin_memory=True)
             h_host.copy_(hist, non_blocking=True)
             s_host.copy_(stats, non_blocking=True)
-            if album is not None:
-                album += hist.sum(dim=0, dtype=torch.int64)
             end.record()
         return _Batch(bsz, route, prep_s, h2d_s, hist=h_host, stats=s_host,
                       events=(copy[0], copy[1], start, end), stages=stages)
@@ -1007,14 +1032,15 @@ class Runner:
             raise ValueError("a segment is a batch of its own")
         with tracing.span("prep"):
             t0 = time.perf_counter()
-            prep, rest, g_max = prepare_batch_arrays_light_compact(unpacked, n_channels, 1)
+            prep, rest, g_max = prepare_batch_arrays_light_compact(unpacked, n_channels)
             _count_rows(unpacked, len(rest[0]) * g_max)
             shapes = {"nb": prep.nb, "g_max": g_max, "g_real": prep.g_real,
                       "g_pad": prep.g_pad}
             if segments:
                 rest[7][0] = segments[0].samples  # the halo's samples are not its own
                 shapes["segment"] = segments[0]
-            return Prepared("light", sample_rate, n_channels, len(unpacked),
+            return Prepared("light", analysis_core_light_compact, Runner.tail,
+                            sample_rate, n_channels, len(unpacked),
                             (prep.scalars, prep.words, prep.word_off, prep.meta,
                              prep.order, prep.inv) + tuple(rest),
                             prep.pooled + (rest[1], rest[6]),
@@ -1023,13 +1049,15 @@ class Runner:
     def prepare_heavy(self, unpacked: list, sample_rate: int,
                       n_channels: int) -> Prepared:
         """Host prep of a batch of same-format host-decoded tracks
-        (frontend.unpack_data)."""
+        (frontend.unpack_data) for the heavy route (analysis_core): a
+        reference the tests compare the light route against, not the main
+        path."""
         with tracing.span("prep"):
             t0 = time.perf_counter()
             args = prepare_batch_arrays(unpacked, n_channels, 1)
             _count_rows(unpacked, args[0].shape[0] * args[0].shape[1])
-            return Prepared("heavy", sample_rate, n_channels, len(unpacked), args, (), {},
-                            time.perf_counter() - t0)
+            return Prepared("heavy", analysis_core, Runner.tail, sample_rate, n_channels,
+                            len(unpacked), args, (), {}, time.perf_counter() - t0)
 
     def prepare_aac_q(self, unpacked: list, sample_rate: int,
                       n_channels: int) -> Prepared:
@@ -1051,7 +1079,8 @@ class Runner:
             rows, counts = short_rows(wseq, wshape, n_channels)
             _count_rows(unpacked, wseq.shape[0] * wseq.shape[1], n_channels)
             return Prepared(
-                "aac_q", sample_rate, n_channels, len(unpacked),
+                "aac_q", aac.analysis_core_q, Runner.aac_tail, sample_rate, n_channels,
+                len(unpacked),
                 (spec_q4, meta, esc_idx, esc_val, fb16[fb_src], fbexp[fb_src],
                  fb_dst, wseq, wshape, valid, rows),
                 (spec_q4, meta, fbmap, wseq, wshape), {"short_counts": counts},
@@ -1071,18 +1100,16 @@ class Runner:
             rows, counts = short_rows(wseq, wshape, n_channels)
             _count_rows(unpacked, wseq.shape[0] * wseq.shape[1], n_channels)
             return Prepared(
-                "aac", sample_rate, n_channels, len(unpacked),
+                "aac", aac.analysis_core, Runner.aac_tail, sample_rate, n_channels,
+                len(unpacked),
                 (spec, sexp, wseq, wshape, valid, rows), (spec, sexp, wseq, wshape),
                 {"short_counts": counts}, time.perf_counter() - t0)
 
-    def launch(self, prepared: Prepared, *, album: torch.Tensor | None = None):
-        """Stage, upload and enqueue a prepared batch; returns a handle for
-        collect(). album, a (12000,) int64 tensor on the device, gets the
-        batch's histograms added on the device."""
-        aac_route = prepared.route in ("aac_q", "aac")
+    def launch(self, prepared: Prepared):
+        """Stage, upload and enqueue a prepared batch (its core on this
+        Runner's tables); returns a handle for collect()."""
         with tracing.span("upload") as up, self._lock, _on(self.device):
-            tail = (self.aac_tail if aac_route else self.tail)(
-                prepared.sample_rate, prepared.n_channels)
+            tail = prepared.tail_of(self, prepared.sample_rate, prepared.n_channels)
             t1 = time.perf_counter()
             try:
                 dev, copy = self._upload(prepared.arrays)
@@ -1090,23 +1117,15 @@ class Runner:
                 # Staged (pinned copy or CPU clone): the pool may reuse them.
                 bufpool.give(*prepared.pooled)
             h2d_s = time.perf_counter() - t1
-            if aac_route:
-                from .. import aac
-
-                core = aac.analysis_core_q if prepared.route == "aac_q" else aac.analysis_core
-            else:
-                core = (analysis_core_light_compact if prepared.route == "light"
-                        else analysis_core)
-            kwargs = prepared.shapes
-            stages = None
-            if up is not None and prepared.route != "heavy":
+            kwargs, stages = prepared.shapes, None
+            if up is not None:
                 stages = []
                 kwargs = dict(kwargs, on_stage=self._stage_marker(stages))
 
             def run():
-                return core(tail, *dev, **kwargs)
+                return prepared.core(tail, *dev, **kwargs)
 
-            batch = self._launch(run, prepared, h2d_s, copy, album, stages)
+            batch = self._launch(run, prepared, h2d_s, copy, stages)
             batch.span = up
             if up is not None and copy is not None:
                 # The allocator hands a batch its memory as it is enqueued,
@@ -1158,17 +1177,14 @@ class Runner:
         tracing.device_spans(str(self.device), handle.span.id, handle.span.root,
                              [(name, a, b) for (_, a), (name, b) in zip(marks, marks[1:])])
 
-    def dispatch_light(self, unpacked: list, sample_rate: int,
-                       n_channels: int, *, album: torch.Tensor | None = None):
+    def dispatch_light(self, unpacked: list, sample_rate: int, n_channels: int):
         """prepare_light, then launch."""
-        return self.launch(self.prepare_light(unpacked, sample_rate, n_channels),
-                           album=album)
+        return self.launch(self.prepare_light(unpacked, sample_rate, n_channels))
 
-    def dispatch_heavy(self, unpacked: list, sample_rate: int,
-                       n_channels: int, *, album: torch.Tensor | None = None):
-        """prepare_heavy, then launch."""
-        return self.launch(self.prepare_heavy(unpacked, sample_rate, n_channels),
-                           album=album)
+    def dispatch_heavy(self, unpacked: list, sample_rate: int, n_channels: int):
+        """prepare_heavy, then launch: the heavy route, a reference the
+        tests compare against, not the main path."""
+        return self.launch(self.prepare_heavy(unpacked, sample_rate, n_channels))
 
     def collect(self, handle: _Batch):
         """Wait for a dispatched batch (on a CUDA device, for its readback
@@ -1218,27 +1234,24 @@ class Runner:
         one batch, or, where it is over segment_plan's budget at ROWS_CAP,
         its segments in order, each dispatched before the one ahead of
         it is collected; the same host arrays as analyze_unpacked_light
-        gives for one track."""
+        gives for one track. A segment that fails raises."""
         sr, nch = u.sample_rate, u.n_channels
         plan = segment_plan(u.n, sr, nch, ROWS_CAP)
         if plan is None:
             return self.analyze_unpacked_light([u], sr, nch)
-        hists, peaks, ahead = [], [], deque()
-        for seg in split_track(u, plan):
+        segments = split_track(u, plan)
+        carry, ahead = segments[0].carry, deque()
+        for seg in segments:
             ahead.append(self.dispatch_light([seg], sr, nch))
             if len(ahead) > 1:
-                hist, _, peak = self.collect(ahead.popleft())
-                hists.append(hist[0])
-                peaks.append(peak[0])
-        hist, _, peak = self.collect(ahead.popleft())
-        hist, loud, peak = combine_segments(hists + [hist[0]], peaks + [peak[0]])
-        return hist[None], np.array([loud]), np.array([peak], np.float32)
+                carry.take(self.collect(ahead.popleft()))
+        return carry.take(self.collect(ahead.popleft()))
 
     def analyze_unpacked(self, unpacked: list, sample_rate: int,
                          n_channels: int):
         """Analyze same-format host-decoded tracks (one batch); the same
-        results as analyze_unpacked_light, through the host-decoded
-        route."""
+        results as analyze_unpacked_light, through the host-decoded (heavy)
+        route: a reference the tests compare against, not the main path."""
         return self.collect(
             self.dispatch_heavy(unpacked, sample_rate, n_channels)
         )
@@ -1383,17 +1396,11 @@ class RunnerGroup:
                 with _on(r.device):
                     parts.append(_to_device(rows, r.device).sum(dim=0, dtype=torch.int64))
                     tops.append(_to_device(pk, r.device).max())
-        total = _sum_on_first(parts, self.runners[0].device)
+        first = self.runners[0].device
+        total = torch.zeros(hi.HISTOGRAM_SIZE, dtype=torch.int64, device=first)
+        for part in parts:
+            total += part.to(first)
         return total.cpu().numpy(), float(np.fmax.reduce([float(t) for t in tops])) if tops else 0.0
-
-
-def _sum_on_first(parts: list, device: torch.device) -> torch.Tensor:
-    """Per-device (12000,) int64 partial histograms, brought to `device`
-    and added there."""
-    total = torch.zeros(hi.HISTOGRAM_SIZE, dtype=torch.int64, device=device)
-    for part in parts:
-        total += part.to(device)
-    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1519,17 +1526,14 @@ def _aac_codec(runner: Runner, device_prep: bool | None) -> _Codec:
 
 class _Lane:
     """One Runner's queue in analyze_library: its single uploader thread
-    (launch order is the order batches were dealt to it), its batches in
-    flight as (future, idxs, sr, nch, ups, est) and, for an album, its
-    device's (12000,) int64 histogram sum."""
+    (launch order is the order batches were dealt to it) and its batches in
+    flight as (future, idxs, sr, nch, ups, est)."""
 
-    def __init__(self, runner: Runner, album: bool):
+    def __init__(self, runner: Runner):
         self.runner = runner
         self.uploader = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix=f"mp3rgain-upload-{runner.device}")
         self.inflight: deque = deque()
-        self.album = (torch.zeros(hi.HISTOGRAM_SIZE, dtype=torch.int64,
-                                  device=runner.device) if album else None)
 
     def queued_bytes(self) -> int:
         return sum(entry[5] for entry in self.inflight)
@@ -1599,18 +1603,20 @@ def analyze_library(
     AAC_ROWS_CAP lanes for AAC. An MP3 track on the light route over
     rows_cap rows or rows_cap / 2 granule-times is cut into segments
     (segment_plan), each a batch of its own, dealt in order to one Runner,
-    which carries the decoder and filter state from one to the next; their
-    histograms add and their peaks give the largest. A track's result depends neither on
+    which carries the decoder and filter state from one to the next; the
+    track's TrackCarry takes their answers in and gives the track's (their
+    histograms add, their peaks give the largest). A track's result depends neither on
     the batch it rode in nor on the Runner that batch went to.
 
     A file that fails to read or walk becomes a failed TrackOutcome and
     the scan goes on. A batch whose dispatch runs out of device memory
     is retried in halves on the Runner that failed; a single track that
     still fails after a pressure_backoff_s pause is isolated as failed.
-    Any other error raises. With album=True the batches' histograms are
-    summed on their devices (int64, one sum per Runner) and the sums added
-    on the first device at the end. batch_cb, if given, is called with the
-    TrackOutcomes of each collected batch (scan checkpointing)."""
+    Any other error raises. With album=True the result's album_histogram
+    is the int64 sum of the ok tracks' histograms (on the host) and
+    album_peak their largest peak. batch_cb, if given, is called with the
+    TrackOutcomes of each collected batch, a segmented track once it is
+    whole (scan checkpointing)."""
     if runners is None:
         runners = [runner] if runner is not None else runners_for("cuda")
     elif runner is not None:
@@ -1628,25 +1634,16 @@ def analyze_library(
 
     outcomes: dict[int, TrackOutcome] = {}
     buckets: dict[tuple[int, int], list] = {}
-    # A segmented track's answers so far: its segments' histograms and
-    # peaks, how many are still out, the first failure.
-    parts: dict[int, dict] = {}
-    segmented_album = np.zeros(hi.HISTOGRAM_SIZE, np.int64)
     audio_seconds = 0.0
-    lanes = [_Lane(r, album) for r in group.runners]
+    lanes = [_Lane(r) for r in group.runners]
 
     _unpack, prepare = codec.unpack, codec.prepare
 
-    def _album(lane, ups):
-        """The lane's album sum, which a segment's histogram joins only
-        with its whole track (_finish_batch)."""
-        return None if isinstance(ups[0], Segment) else lane.album
-
     def _dispatch(lane, ups, sr, nch):
-        return lane.runner.launch(prepare(ups, sr, nch), album=_album(lane, ups))
+        return lane.runner.launch(prepare(ups, sr, nch))
 
-    def _launch(lane, prepared, album):
-        return lane.runner.launch(prepared.result(), album=album)
+    def _launch(lane, prepared):
+        return lane.runner.launch(prepared.result())
 
     def _dispatch_collect_halving(lane, ups, idxs, sr, nch):
         """Runs on the lane's uploader thread after an out-of-memory
@@ -1676,29 +1673,11 @@ def analyze_library(
             return (_dispatch_collect_halving(lane, ups[:mid], idxs[:mid], sr, nch)
                     + _dispatch_collect_halving(lane, ups[mid:], idxs[mid:], sr, nch))
 
-    def _segment_done(i, collected):
-        """Take in one segment's answer; its track's (hist, loudness, peak)
-        once every segment is in, an Exception if one failed, else None."""
-        part = parts[i]
-        part["left"] -= 1
-        if isinstance(collected, Exception):
-            part["error"] = part["error"] or collected
-        else:
-            part["hists"].append(collected[0][0])
-            part["peaks"].append(collected[2][0])
-        if part["left"]:
-            return None
-        del parts[i]
-        if part["error"] is not None:
-            return part["error"]
-        hist, loud, peak = combine_segments(part["hists"], part["peaks"])
-        if album:
-            segmented_album[:] += hist
-        return hist[None], [loud], [peak]
-
-    def _finish_batch(idxs, sr, collected):
-        if len(idxs) == 1 and idxs[0] in parts:
-            collected = _segment_done(idxs[0], collected)
+    def _finish_batch(idxs, sr, collected, carry):
+        """Record a collected batch's outcomes; a segment's answer goes to
+        its track's carry, and the track is recorded once it is whole."""
+        if carry is not None:
+            collected = carry.take(collected)
             if collected is None:
                 return
         if isinstance(collected, Exception):
@@ -1730,16 +1709,16 @@ def analyze_library(
 
     def collect_one(lane):
         fut, idxs, sr, nch, ups, _est = lane.inflight.popleft()
+        carry = ups[0].carry if isinstance(ups[0], Segment) else None
         try:
             with tracing.span("collect"):
                 handle = fut.result()
         except Exception as e:
             if not _retryable(e):
                 raise
-            part = parts.get(idxs[0]) if isinstance(ups[0], Segment) else None
-            if part is not None and part["error"] is not None:
+            if carry is not None and carry.error is not None:
                 # A segment after one that failed: its track has no answer.
-                _finish_batch(idxs, sr, part["error"])
+                _finish_batch(idxs, sr, carry.error, carry)
                 return
             if not isinstance(e, CarryMissing):
                 tracing.count("oom.retries")
@@ -1748,9 +1727,9 @@ def analyze_library(
             with tracing.span("collect"):
                 halves = retried.result()
             for idxs2, collected in halves:
-                _finish_batch(idxs2, sr, collected)
+                _finish_batch(idxs2, sr, collected, carry)
             return
-        _finish_batch(idxs, sr, lane.runner.collect(handle))
+        _finish_batch(idxs, sr, lane.runner.collect(handle), carry)
 
     def must_wait(lane, est):
         """Admission: at most MAX_INFLIGHT batches in flight on a Runner
@@ -1772,17 +1751,14 @@ def analyze_library(
                 while must_wait(lane, est):
                     collect_one(lane)
         prepared = preppers.submit(tracing.carry(prepare), ups, sr, nch)
-        lane.inflight.append((lane.uploader.submit(tracing.carry(_launch), lane, prepared,
-                                                   _album(lane, ups)),
+        lane.inflight.append((lane.uploader.submit(tracing.carry(_launch), lane, prepared),
                               idxs, sr, nch, ups, est))
 
     def flush_segments(i, u, plan):
         """A track over the rows cap: its segments in order, each a batch
         of its own, all on one Runner."""
-        segments = split_track(u, plan)
-        parts[i] = {"left": len(segments), "hists": [], "peaks": [], "error": None}
         lane = min(lanes, key=_Lane.queued_bytes)
-        for seg in segments:
+        for seg in split_track(u, plan):
             flush_bucket((u.sample_rate, u.n_channels), [(i, seg)], lane)
 
     def flush_ready(key, members, final=False):
@@ -1851,8 +1827,8 @@ def analyze_library(
                          wall_seconds=time.monotonic() - t0)
     ok = [t for t in tracks if t.ok]
     if album and ok:
-        result.album_histogram = _sum_on_first(
-            [lane.album for lane in lanes], lanes[0].runner.device).cpu().numpy()
-        result.album_histogram += segmented_album
+        result.album_histogram = np.zeros(hi.HISTOGRAM_SIZE, np.int64)
+        for t in ok:
+            result.album_histogram += t.histogram
         result.album_peak = max(t.result.peak for t in ok)
     return result

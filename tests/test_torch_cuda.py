@@ -393,7 +393,8 @@ def test_light_path_on_card_matches_cpu(dev):
 def test_library_on_card_matches_runner_batches(dev, tmp_path):
     """analyze_library over 3 pipelined batches (6 copies of a clip, two
     to a batch) equals Runner(dev) on one such batch, with K1 and K2
-    launched once per batch and the album summed on the card."""
+    launched once per batch and the album the sum of the tracks'
+    histograms."""
     paths = []
     for i in range(6):
         paths.append(str(tmp_path / f"t{i}.mp3"))

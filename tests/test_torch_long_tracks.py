@@ -13,7 +13,8 @@ analyze_track_internal and analyze_album (window count and loudness
 index exact, peak within rtol 2e-4, histograms within the batch-shape
 caveat: a few windows one bin away), against the float64 reference
 (testing/reference.py, 0.005 dB), a track under the cap bit-equal to the
-one-batch path, out-of-memory retry and isolation of a segment, the
+one-batch path, out-of-memory retry and isolation of a segment (and
+its failure raised in the per-file path), the
 spans and counters of a traced run, and the peak gauge naming its batch.
 """
 
@@ -301,6 +302,19 @@ def test_a_segment_that_always_runs_out_of_memory_isolates_its_track(long_tracks
     assert good.ok and good.result == want.tracks[1].result
     # The album holds the tracks that have an answer, whole.
     assert np.array_equal(res.album_histogram, good.histogram)
+
+
+def test_a_segment_that_always_runs_out_of_memory_raises_per_file(long_tracks, monkeypatch):
+    """The per-file path (Runner.analyze_track_light) has no isolation: a
+    segment whose launch keeps failing raises, and the track gets no
+    partial answer."""
+    monkeypatch.setattr(pr, "ROWS_CAP", CAP)
+    runner = pr.Runner("cpu")
+    _flaky_segments(runner, None)
+    with open(long_tracks[0], "rb") as f:  # the stereo track: segment 1 fails
+        u = fe.unpack_data_light_packed(f.read())
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        runner.analyze_track_light(u)
 
 
 def test_segment_spans_and_counters_in_a_traced_run(segmented):
