@@ -17,11 +17,13 @@
 //     compact word array, and its five packed uint16 meta words
 //     (mg_entropy_pack4's layout), in walk order.
 //   mg_lane_copy: each row's used words, back to back in walk order (the
-//     reads run forward through each track).
+//     reads run forward through each track), from a byte offset and a
+//     byte count a row, so that the 528-byte rows and the main-data
+//     stream are read by the same copy.
 //
-// Tracks are passed as base pointers with row strides, so no per-row
-// pointer array is built. field[] holds the meta column of each F_* field
-// (decode/frontend.py LM_*).
+// Tracks are passed as base pointers with row strides (meta) or per-row
+// byte offsets (md), so no per-row pointer array is built. field[] holds
+// the meta column of each F_* field (decode/frontend.py LM_*).
 
 #include <stdint.h>
 #include <string.h>
@@ -174,17 +176,26 @@ int64_t mg_lane_plan(const uint64_t* meta_base, const int64_t* meta_stride,
   return total;
 }
 
-// md_base[t] / md_stride[t] (bytes) / counts[t]: track t's md rows. Copies
-// row r's word_off[r + 1] - word_off[r] words to words + word_off[r].
-void mg_lane_copy(const uint64_t* md_base, const int64_t* md_stride,
-                  const int64_t* counts, int64_t ntracks, const int32_t* word_off,
-                  uint32_t* words) {
+// md_base[t] / md_off[t] (int64) / md_count[t] (uint16) / counts[t]: track
+// t's Huffman windows, row i's md_count[t][i] bytes at md_base[t] +
+// md_off[t][i], zeros after them (frontend.unpack_data_light_stream's
+// MdWindows; the 528-byte row form is off = i * 528, count = 528). Copies
+// row r's word_off[r + 1] - word_off[r] words to words + word_off[r],
+// zero past the row's bytes.
+void mg_lane_copy(const uint64_t* md_base, const uint64_t* md_off,
+                  const uint64_t* md_count, const int64_t* counts,
+                  int64_t ntracks, const int32_t* word_off, uint32_t* words) {
   int64_t r = 0;
   for (int64_t t = 0; t < ntracks; ++t) {
     const uint8_t* md = reinterpret_cast<const uint8_t*>(md_base[t]);
+    const int64_t* off = reinterpret_cast<const int64_t*>(md_off[t]);
+    const uint16_t* count = reinterpret_cast<const uint16_t*>(md_count[t]);
     for (int64_t i = 0; i < counts[t]; ++i, ++r) {
-      const int64_t nw = word_off[r + 1] - word_off[r];
-      memcpy(words + word_off[r], md + i * md_stride[t], static_cast<size_t>(nw) * 4);
+      const int64_t nb = static_cast<int64_t>(word_off[r + 1] - word_off[r]) * 4;
+      const int64_t c = count[i] < nb ? count[i] : nb;
+      uint8_t* dst = reinterpret_cast<uint8_t*>(words + word_off[r]);
+      memcpy(dst, md + off[i], static_cast<size_t>(c));
+      memset(dst + c, 0, static_cast<size_t>(nb - c));
     }
   }
 }

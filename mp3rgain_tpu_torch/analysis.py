@@ -85,7 +85,7 @@ def _analyze_mp3(path, runner: Runner):
     batch, or the track's segments where it is over the rows cap
     (Runner.analyze_track_light)."""
     with tracing.span("walk"), open(path, "rb") as f:
-        u = frontend.unpack_data_light_packed(f.read())
+        u = frontend.unpack_data_light_stream(f.read())
     if u.n == 0:
         raise AnalysisError("No valid MP3 frames found")
     hist, louds, peaks = runner.analyze_track_light(u)

@@ -380,6 +380,18 @@ def _track_table(arrays, row_bytes: int):
     return base, stride
 
 
+def _windows(md) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(bytes, each row's first byte int64, its byte count uint16) of a
+    track's md, mg_lane_copy's reading: an MdWindows as it is, rows of
+    `stride` bytes as offsets i * stride and counts of stride, whose bytes
+    past the window are zero already."""
+    if isinstance(md, fe.MdWindows):
+        return md.stream, md.off, md.count
+    md = np.ascontiguousarray(md)
+    n, stride = md.shape
+    return (md, np.arange(n, dtype=np.int64) * stride, np.full(n, stride, dtype=np.uint16))
+
+
 def prepare_batch_compact(md, meta, quantize_nb: bool = False,
                           force_nb: int | None = None,
                           force_g_pad: int | None = None) -> CompactEntropy:
@@ -387,12 +399,14 @@ def prepare_batch_compact(md, meta, quantize_nb: bool = False,
     g_pad) in two native calls that leave the transpose to lane_pack: the
     plan with each row's packed meta (_host/lane_plan.cpp mg_lane_plan),
     then a copy of each row's used words in walk order (mg_lane_copy),
-    into a pooled buffer the plan's word count sizes."""
+    into a pooled buffer the plan's word count sizes. A track's md is its
+    rows (n, stride) uint8, as prepare_batch takes them, or its windows in
+    the main-data stream (fe.MdWindows); a batch may mix the two, and
+    gives the same arrays either way."""
     from ..lane_plan import _lib as plan_lib
 
     md_list = list(md) if isinstance(md, (list, tuple)) else [md]
     meta_list = list(meta) if isinstance(meta, (list, tuple)) else [meta]
-    md_list = [np.ascontiguousarray(m) for m in md_list]
     meta_list = [np.ascontiguousarray(m, dtype=np.int32) for m in meta_list]
     counts = np.array([m.shape[0] for m in md_list], dtype=np.int64)
     n = int(counts.sum())
@@ -411,7 +425,6 @@ def prepare_batch_compact(md, meta, quantize_nb: bool = False,
         nb = force_nb
     npad = nb * LANES
 
-    md_base, md_rs = _track_table(md_list, 1)
     meta_base, meta_rs = _track_table(meta_list, 4)
     order = bufpool.take((npad,), np.int32)
     inv = bufpool.take((npad,), np.int32)
@@ -436,9 +449,13 @@ def prepare_batch_compact(md, meta, quantize_nb: bool = False,
 
     # Pooled at a quantized length, so that batches of like size share it.
     words = bufpool.take((_quantize_g(total),), np.int32)
+    windows = [_windows(m) for m in md_list]
+    md_base, md_off, md_count = (
+        np.array([w[k].ctypes.data for w in windows], dtype=np.uint64) for k in range(3))
     plan_lib.mg_lane_copy(
-        md_base.ctypes.data_as(u64p), md_rs.ctypes.data_as(i64p),
-        counts.ctypes.data_as(i64p), len(md_list), word_off.ctypes.data_as(i32p),
+        md_base.ctypes.data_as(u64p), md_off.ctypes.data_as(u64p),
+        md_count.ctypes.data_as(u64p), counts.ctypes.data_as(i64p), len(md_list),
+        word_off.ctypes.data_as(i32p),
         words.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
     )
     return CompactEntropy(

@@ -1,7 +1,8 @@
 """The torch port's copy of mp3rgain_tpu/decode/frontend.py, bound to the
 port's native.py (whose loader declares the entry points, so nothing
 here builds or loads the library at import), held equal to it by
-tests/test_torch_host_copies.py.
+tests/test_torch_host_copies.py. Its last section, the light walk into a
+main-data stream (unpack_data_light_stream), is the port's own.
 
 Python wrapper for the native MP3 decode front-end.
 
@@ -317,3 +318,116 @@ def unpack_data_light(data: bytes) -> UnpackedMp3Light:
 def unpack_file_light(path) -> UnpackedMp3Light:
     with open(path, "rb") as f:
         return unpack_data_light(f.read())
+
+
+# ---------------------------------------------------------------------------
+# The port's own: the light walk into a main-data stream (_host/light_walk.cpp,
+# built by light_walk.py), the light route's walk. The packed walk above
+# copies each row's Huffman window into MD_STRIDE bytes, of which typical
+# content fills a quarter; this one writes the track's main data once and
+# gives each row's window as a byte range of it.
+# ---------------------------------------------------------------------------
+
+# Zero bytes after a stream's main data (at least 16: the rows the packed
+# walk zeroes point here).
+STREAM_TAIL = 16
+
+
+@dataclass
+class MdWindows:
+    """Each row's Huffman window as a byte range of its track's main-data
+    stream: the rows of the packed form's md without the rows. Row i's md
+    row holds stream[off[i] : off[i] + count[i]] and zeros after it. Slices
+    share the stream (a segment's rows). Admission counts it as the rows it
+    stands for (nbytes), so batches are cut as for the packed form."""
+
+    stream: np.ndarray  # (main-data bytes + STREAM_TAIL,) uint8
+    off: np.ndarray  # (n,) int64 each window's first byte in stream
+    count: np.ndarray  # (n,) uint16 its bytes before the md row's zeros
+
+    def __getitem__(self, rows: slice) -> MdWindows:
+        return MdWindows(self.stream, self.off[rows], self.count[rows])
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.off.shape[0], MD_STRIDE)
+
+    @property
+    def nbytes(self) -> int:
+        return self.off.shape[0] * MD_STRIDE
+
+    @property
+    def emitted_bytes(self) -> int:
+        """What the walk wrote for it: the stream, the offsets, the counts."""
+        return self.stream.nbytes + self.off.nbytes + self.count.nbytes
+
+
+@dataclass
+class UnpackedMp3LightStream:
+    """UnpackedMp3LightPacked with md as MdWindows: the same rows, fields
+    and shapes, each track's main data held once."""
+
+    ip: np.ndarray  # (n, IP_N) uint16 packed info words
+    scf_main: np.ndarray  # (n, SCF_MAIN_BYTES) uint8 low nibbles
+    srows: np.ndarray  # (ns,) int32 track-local short-window rows
+    sdata: np.ndarray  # (ns, SCF_SIDE_BYTES) uint8
+    hrows: np.ndarray  # (nh,) int32 track-local high-bit rows
+    hmask: np.ndarray  # (nh, SCF_HI_BYTES) uint8
+    md: MdWindows
+    meta: np.ndarray  # (n, LIGHT_META_N) int32
+    sample_rate: int
+    n_channels: int
+
+    @property
+    def n(self) -> int:
+        return self.ip.shape[0]
+
+
+def unpack_data_light_stream(data: bytes) -> UnpackedMp3LightStream:
+    """The light walk into a main-data stream (mg_light_stream_walk): the
+    same rows as unpack_data_light_packed (ip, scf_main, the sidebands,
+    meta, sample rate and channels byte for byte), with each row's md row
+    as a byte range of the track's main data, which an exact count
+    pre-pass (mg_light_stream_count) sizes. Counts what it emitted in the
+    walk.md_bytes counter."""
+    from .. import tracing
+    from ..light_walk import _lib as walk_lib
+
+    buf = _inbuf(data)
+    md_bytes = ctypes.c_int64()
+    cap = max(1, int(walk_lib.mg_light_stream_count(buf, len(data), ctypes.byref(md_bytes))))
+    u16p = ctypes.POINTER(ctypes.c_uint16)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    ip = np.empty((cap, IP_N), dtype=np.uint16)
+    scf_main = np.empty((cap, SCF_MAIN_BYTES), dtype=np.uint8)
+    srows = np.empty(cap, dtype=np.int32)
+    sdata = np.empty((cap, SCF_SIDE_BYTES), dtype=np.uint8)
+    hrows = np.empty(cap, dtype=np.int32)
+    hmask = np.empty((cap, SCF_HI_BYTES), dtype=np.uint8)
+    meta = np.empty((cap, LIGHT_META_N), dtype=np.int32)
+    stream = np.empty(md_bytes.value + STREAM_TAIL, dtype=np.uint8)
+    off = np.empty(cap, dtype=np.int64)
+    count = np.empty(cap, dtype=np.uint16)
+    hdr = np.zeros(4, dtype=np.int32)
+    n = walk_lib.mg_light_stream_walk(
+        buf, len(data),
+        ip.ctypes.data_as(u16p), scf_main.ctypes.data_as(_u8p),
+        srows.ctypes.data_as(i32p), sdata.ctypes.data_as(_u8p),
+        hrows.ctypes.data_as(i32p), hmask.ctypes.data_as(_u8p),
+        meta.ctypes.data_as(i32p), stream.ctypes.data_as(_u8p),
+        md_bytes.value, stream.shape[0],
+        off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), count.ctypes.data_as(u16p),
+        cap, hdr.ctypes.data_as(i32p),
+    )
+    if not 0 <= n <= cap:  # the count walks the same frames: never, unless it is broken
+        raise RuntimeError(f"light stream walk: {n} rows against a count of {cap}")
+    ns, nh = int(hdr[2]), int(hdr[3])
+    md = MdWindows(stream, off[:n], count[:n])
+    tracing.count("walk.md_bytes", md.emitted_bytes)
+    return UnpackedMp3LightStream(
+        ip=ip[:n], scf_main=scf_main[:n],
+        srows=srows[:ns].copy(), sdata=sdata[:ns].copy(),
+        hrows=hrows[:nh].copy(), hmask=hmask[:nh].copy(),
+        md=md, meta=meta[:n],
+        sample_rate=int(hdr[0]), n_channels=int(hdr[1]),
+    )

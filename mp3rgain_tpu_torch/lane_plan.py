@@ -45,7 +45,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mg_lane_plan.argtypes = [u64p, i64p, i64p, i64, i32p, i64, i64, i64, i64,
                                  i32p, i32p, i32p, i32p, u16p, i64p]
     lib.mg_lane_copy.restype = None
-    lib.mg_lane_copy.argtypes = [u64p, i64p, i64p, i64, i32p, u32p]
+    lib.mg_lane_copy.argtypes = [u64p, u64p, u64p, i64p, i64, i32p, u32p]
 
 
 _lib = native._Library(build, _declare)

@@ -167,8 +167,8 @@ def _light_rows(unpacked: list, n_channels: int, npad: int, bpad: int,
         if not u.n:
             continue
         if hasattr(u, "ip"):
-            # Packed walk (fe.unpack_data_light_packed): the rows ARE
-            # the transfer form — plain row copies.
+            # Packed or stream walk (fe.unpack_data_light_packed /
+            # _stream): the rows ARE the transfer form — plain row copies.
             info[off : off + u.n] = u.ip
             scf[off : off + u.n] = u.scf_main
             if len(u.srows):
@@ -754,10 +754,10 @@ class TrackCarry:
 
 @dataclass(eq=False)
 class Segment:
-    """Granule-times [g0 - halo, g1) of a packed light-unpacked track, as
-    a track of its own (the rows are views of the track's), for a batch
-    of one: its index in the track, its halo, the samples it answers for
-    and whether it is the last."""
+    """Granule-times [g0 - halo, g1) of a light-unpacked track, as a track
+    of its own (the rows are views of the track's, and md windows share its
+    main-data stream), for a batch of one: its index in the track, its
+    halo, the samples it answers for and whether it is the last."""
 
     ip: np.ndarray
     scf_main: np.ndarray
@@ -765,7 +765,7 @@ class Segment:
     sdata: np.ndarray
     hrows: np.ndarray
     hmask: np.ndarray
-    md: np.ndarray
+    md: np.ndarray | fe.MdWindows
     meta: np.ndarray
     sample_rate: int
     n_channels: int
@@ -781,9 +781,10 @@ class Segment:
 
 
 def split_track(u, plan: list[tuple[int, int]]) -> list[Segment]:
-    """The segments of a packed light-unpacked track (fe.UnpackedMp3LightPacked)
-    for segment_plan's ranges, each starting HALO granule-times early
-    (fewer at the track's start); they share one TrackCarry."""
+    """The segments of a light-unpacked track (fe.UnpackedMp3LightStream or
+    fe.UnpackedMp3LightPacked) for segment_plan's ranges, each starting
+    HALO granule-times early (fewer at the track's start); they share one
+    TrackCarry."""
     carry = TrackCarry(len(plan))
     nch = u.n_channels
     out = []
@@ -1230,7 +1231,7 @@ class Runner:
         )
 
     def analyze_track_light(self, u):
-        """Analyze one light-unpacked track (fe.unpack_data_light_packed):
+        """Analyze one light-unpacked track (fe.unpack_data_light_stream):
         one batch, or, where it is over segment_plan's budget at ROWS_CAP,
         its segments in order, each dispatched before the one ahead of
         it is collected; the same host arrays as analyze_unpacked_light
@@ -1463,8 +1464,9 @@ def _est_resident_bytes(ups) -> int:
     manifest plus the decode's int16 spectra; 1.3x covers ladder and
     ragged padding."""
     n = sum(u.n for u in ups)
+    # A light track's md windows count as the md rows they stand for.
     inputs = sum(a.nbytes for u in ups for a in vars(u).values()
-                 if isinstance(a, np.ndarray))
+                 if isinstance(a, (np.ndarray, fe.MdWindows)))
     return int(1.3 * inputs + 1.3 * n * 576 * 2)
 
 
@@ -1487,7 +1489,7 @@ def _mp3_codec(runner: Runner, device_entropy: bool) -> _Codec:
     def unpack(path):
         if device_entropy:
             with open(path, "rb") as f:
-                u = fe.unpack_data_light_packed(f.read())
+                u = fe.unpack_data_light_stream(f.read())
         else:
             u = fe.unpack_file(path)
         if u.n == 0:

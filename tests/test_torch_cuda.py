@@ -377,6 +377,40 @@ def test_a_scan_packs_lanes_on_the_card_once_per_decode(dev, tmp_path):
     assert not any(isinstance(r, Exception) for r in res.results.values())
 
 
+def test_a_scan_of_the_stream_walk_equals_one_of_the_copied_walk(dev, tmp_path, monkeypatch):
+    """scan_files on the card walks into the main-data stream
+    (fe.unpack_data_light_stream); with the copied walk's output (528-byte
+    md rows) in its place the answers are the same, bit for bit: gains,
+    peaks and histograms, a track cut into segments among them."""
+    from mp3rgain_tpu_torch.testing import tile
+
+    paths = []
+    for i, name in enumerate([smoke.TRANSIENT_TRACK, smoke.MONO_TRACK, smoke.HOT_TRACK,
+                              smoke.TRANSIENT_TRACK]):
+        paths.append(str(tmp_path / f"t{i}.mp3"))
+        with open(paths[-1], "wb") as f:
+            f.write(_clip(name))
+    paths.append(str(tmp_path / "long.mp3"))
+    tile.tile_mp3(_clip(smoke.HOT_TRACK), paths[-1], 3)
+    monkeypatch.setattr(pr, "ROWS_CAP", 1400)  # the tiled track: 3 segments
+
+    def scan_once():
+        with tracing.recording():
+            res = scan.scan_files(paths, runner=pr.Runner(dev))
+            return res, tracing.snapshot()["counters"]
+
+    streamed, counters = scan_once()
+    assert counters["walk.md_bytes"] > 0 and counters["tracks.segmented"] == 1
+    monkeypatch.setattr(fe, "unpack_data_light_stream", fe.unpack_data_light_packed)
+    copied, counters = scan_once()
+    assert "walk.md_bytes" not in counters and counters["tracks.segmented"] == 1
+    for p in paths:
+        a, b = streamed.results[p], copied.results[p]
+        assert not isinstance(a, Exception) and not isinstance(b, Exception), (a, b)
+        assert (a.gain_db, a.peak) == (b.gain_db, b.peak)
+        assert np.array_equal(streamed.histograms[p], copied.histograms[p])
+
+
 def test_light_path_on_card_matches_cpu(dev):
     u = fe.unpack_data_light_packed(_clip(smoke.TRANSIENT_TRACK))
     with tracing.recording():
